@@ -1,0 +1,317 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, one line each: the card; the build of every kernel from
+``scpp_tpu_torch/csrc``; each kernel held against its plain PyTorch
+version at the main path's shapes; the main path itself (64 dispersed
+RocketQuat K=30 SCvx solves at the flagship configuration, through
+``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count of every
+kernel. Then one JSON line of kernel measurements, the card's name and
+power limit, and the result line. Any failure exits non-zero before the
+result line; without a CUDA device it exits non-zero at once.
+"""
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+# the reference pins full-fp32 products: no TF32 for matmuls or convolutions
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+B, K = 64, 30
+H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores, 700 W
+F32_CEILING = 1e-2                  # see "kernel vs plain" in main()
+
+
+def card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def flagship_config():
+    from scpp_tpu_torch.configs.algorithms import SCvxConfig
+    from scpp_tpu_torch.solver.ipm import IPMSettings
+    return SCvxConfig(
+        K=K, max_iterations=30, solve_budget=45, change_threshold=1e-3,
+        nondimensionalize=True, substeps=6, sim_substeps=8,
+        solver=IPMSettings(iters=10, eps_reg=1e-4, eps_feas=1e-4,
+                           refine_steps=0, monolith=True))
+
+
+def dispersed_params(dtype):
+    from scpp_tpu_torch.models import RocketQuat
+    from scpp_tpu_torch.parallel.scenarios import disperse_initial_state
+    gen = torch.Generator().manual_seed(0)
+    return disperse_initial_state(RocketQuat, RocketQuat.default_params(dtype),
+                                  gen, B, 2.0)
+
+
+def flagship_programs(cfg, dtype):
+    """The step-0 subproblems of the main path, built by the port."""
+    from scpp_tpu_torch.algos.staged_problems import \
+        build_scvx_subproblem_staged
+    from scpp_tpu_torch.models import RocketQuat
+    from scpp_tpu_torch.models.base import map_tensors
+    from scpp_tpu_torch.ops.discretization import multiple_shooting
+    p = map_tensors(dispersed_params(dtype), lambda t: t.cuda())
+    p = RocketQuat.nondimensionalize(p)
+    par = RocketQuat.param_vector(p)
+    td = RocketQuat.init_trajectory(p, K, True)
+    dd = multiple_shooting(RocketQuat, par, td, substeps=cfg.substeps)
+    trust = torch.full((B,), cfg.trust_region, dtype=dtype, device="cuda")
+    return build_scvx_subproblem_staged(
+        RocketQuat, p, td, dd, trust, cfg.weight_virtual_control,
+        RocketQuat.constraint_ref(p, td))
+
+
+def cuda_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def mono_work(prog, settings, iters, cold):
+    """Bytes the kernel must move (inputs once, outputs once) and the
+    floating-point operations its algorithm does for these inputs, with
+    each scenario's own iteration count."""
+    w, me, mc = prog.w, prog.me, prog.mc
+    Wp = w + me
+    esz = prog.A_eq.element_size()
+    in_elems = K * (2 * w * (me + mc) + 3 * me + 3 * mc + 3 * w) + 4
+    out_elems = K * (w + me + 2 * mc) + 4
+    nbytes = B * (in_elems + out_elems) * esz
+    fma_factor = K * (3 * w * w * (mc + me) + w * w * Wp + Wp ** 3 / 3
+                      + Wp * Wp * w / 2)
+    fma_raw = K * (Wp * Wp + 2 * Wp * w)
+    fma_a, fma_g = K * me * 2 * w, K * mc * 2 * w
+    fma_rmv = K * w * 2 * (me + mc)
+    r = settings.refine_steps
+    fma_kkt = fma_rmv + (1 + r) * fma_raw + r * (fma_a + fma_g + fma_rmv) \
+        + fma_g
+    fma_res = fma_rmv + fma_a + fma_g
+    per_iter = fma_res + fma_factor + 2 * fma_kkt + 2 * fma_g
+    init = (fma_factor + 2 * (fma_rmv + fma_raw + fma_g)) if cold else 0
+    fmas = sum(init + it * per_iter + fma_res for it in iters)
+    return nbytes, 2.0 * fmas
+
+
+def cast(prog, dtype):
+    from scpp_tpu_torch.models.base import map_tensors
+    return map_tensors(prog, lambda t: t.to(dtype))
+
+
+def solve_both(statics, prog, warm):
+    """Kernel and plain version on the same prepared inputs; returns the
+    raw outputs and the unscaled results of both."""
+    from scpp_tpu_torch.solver import ipm_mono
+    st = statics[-1]
+    f = dict(dtype=prog.A_eq.dtype, device="cuda")
+    if warm is None:
+        wx = torch.zeros((B, K, prog.w), **f)
+        wy = torch.zeros((B, K, prog.me), **f)
+        wz = torch.zeros((B, K, prog.mc), **f)
+    else:
+        wx, wy, wz = (t.to(f["dtype"]) for t in warm)
+    ok = torch.full((B,), warm is not None, device="cuda")
+    ins, scales = ipm_mono._prep(prog, st, wx, wy, wz, ok)
+    k = ipm_mono._mono_cuda(statics, *ins)
+    p = ipm_mono._solve_block(statics, *ins)
+    torch.cuda.synchronize()
+    return ins, k, p, ipm_mono._post(prog, *k[:4], scales), \
+        ipm_mono._post(prog, *p[:4], scales)
+
+
+def rel_diffs(a, b):
+    """Max differences of two solve results, relative to 1 + max|b|."""
+    out = {}
+    for n in ("x_stage", "y_stage", "z_stage"):
+        u, v = getattr(a, n).double(), getattr(b, n).double()
+        out[n[0]] = float((u - v).abs().max() / (1 + v.abs().max()))
+    out["obj"] = float(((a.obj.double() - b.obj.double()).abs()
+                        / (1 + b.obj.double().abs())).max())
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from scpp_tpu_torch import kernels
+    from scpp_tpu_torch.algos.scvx import solve_scvx
+    from scpp_tpu_torch.models import RocketQuat
+    from scpp_tpu_torch.solver import ipm_mono
+
+    dev = card()
+    tag = f"[{dev}]"
+    print(f"device: {dev}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}; {torch.cuda.device_count()} visible")
+
+    # ---- build ----
+    t0 = time.perf_counter()
+    report = kernels.build(verbose=True)
+    build_s = time.perf_counter() - t0
+    for name, (sec, log) in report.items():
+        usage = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build {tag}: {name} nvcc {sec:.1f} s; " + " | ".join(usage))
+    print(f"build {tag}: all kernels {build_s:.1f} s")
+
+    # ---- kernel vs plain at the main path's shapes ----
+    # The gate is float64: the kernel and its plain version run the same
+    # algorithm and differ only in summation order (measured ~1e-10 on
+    # the card), so they must agree to 1e-6 and give the same converged
+    # flags. In float32, the main path's dtype, the kernel must land within
+    # F32_CEILING of the float64 solution on the warm solves (warm-started
+    # from the float64 cold solution, as the main path's later steps are
+    # warm-started): about four times the largest reading there (2.30e-3
+    # for the kernel, 2.29e-3 for the plain version, on y). The cold solves
+    # end their 10 IPM iterations far from convergence, where float32
+    # rounding moves the returned iterate far (both versions land up to
+    # 0.19 away), so there float32 is only printed.
+    cfg = flagship_config()
+    st = cfg.solver
+    prog64 = flagship_programs(cfg, torch.float64)
+    prog32 = cast(prog64, torch.float32)
+    statics = (prog64.K, prog64.w, prog64.me, prog64.l,
+               tuple(prog64.soc_sizes), st)
+    print(f"kernel vs plain {tag}: mono_ipm B={B} K={K} w={prog64.w} "
+          f"me={prog64.me} mc={prog64.mc} soc={prog64.soc_sizes}, step-0 "
+          f"subproblems of the main path, cold and warm")
+    ok_all, max_err, warm64, warm32 = True, 0.0, None, None
+    for case in ("cold", "warm"):
+        _, k64, p64, rk64, rp64 = solve_both(statics, prog64, warm64)
+        d64 = rel_diffs(rk64, rp64)
+        eps = st.eps_feas
+        flags = int(((k64[4][:, 0, 0] < eps) != (p64[4][:, 0, 0] < eps))
+                    .sum())
+        ok64 = max(d64.values()) <= 1e-6 and flags == 0
+        ins32, k32, p32, rk32, rp32 = solve_both(statics, prog32, warm32)
+        dk, dp = rel_diffs(rk32, rp64), rel_diffs(rp32, rp64)
+        ok32 = all(bool(torch.isfinite(t).all()) for t in k32[:4]) and (
+            case == "cold" or max(dk.values()) <= F32_CEILING)
+        for a, b in zip(k32[:4], p32[:4]):
+            max_err = max(max_err, float((a - b).abs().max()))
+        print(f"  {case} float64 kernel vs plain: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in d64.items())
+              + f"; converged flags differing {flags}; tolerance 1e-6 -> "
+              f"{'ok' if ok64 else 'FAIL'}")
+        print(f"  {case} float32 vs float64 plain, kernel / plain: "
+              + ", ".join(f"{n} {dk[n]:.2e} / {dp[n]:.2e}" for n in dk)
+              + ("; printed only" if case == "cold" else
+                 f"; kernel ceiling {F32_CEILING:g}")
+              + f" -> {'ok' if ok32 else 'FAIL'}")
+        ok_all &= ok64 and ok32
+        warm64 = (rk64.x_stage, rk64.y_stage, rk64.z_stage)
+        warm32 = warm64
+        if case == "cold":
+            iters = k32[4][:, 0, 1].tolist()
+            ms = cuda_ms(lambda: ipm_mono._mono_cuda(statics, *ins32), 5)
+            plain_ms = cuda_ms(
+                lambda: ipm_mono._solve_block(statics, *ins32), 2)
+    nbytes, flops = mono_work(prog32, st, iters, cold=True)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    measures = {"mono_ipm": dict(
+        max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes > t_ops else "operations")}
+    print(f"kernel time {tag}: mono_ipm float32 {ms:.3f} ms per launch "
+          f"(B={B} cold, IPM iterations per scenario {min(iters):.0f}-"
+          f"{max(iters):.0f}), plain {plain_ms:.1f} ms; bound "
+          f"{max(t_bytes, t_ops):.4f} ms by {measures['mono_ipm']['bound_by']}"
+          f" ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
+    if not ok_all:
+        print("kernel vs plain: FAILED", file=sys.stderr)
+        return 1
+
+    # ---- the main path ----
+    params = dispersed_params(torch.float32)
+    t0 = time.perf_counter()
+    solve_scvx(RocketQuat, params, cfg, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    events = defaultdict(list)
+
+    @contextlib.contextmanager
+    def phase(name):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        events[name].append((a, b))
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_scvx(RocketQuat, params, cfg, device="cuda", phase=phase)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+
+    conv = int(res.converged.sum())
+    J_end = res.nonlinear_cost[:, -1]
+    n_steps = int(res.steps.max())
+    split = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in
+             events.items()}
+    print(f"main path {tag}: {conv}/{B} converged; J_end max "
+          f"{float(J_end.max()):.4f} mean {float(J_end.mean()):.4f}; "
+          f"SCvx steps {n_steps} (per scenario "
+          f"{int(res.steps.min())}-{n_steps}); mono_ipm launches "
+          f"{launches['mono_ipm']}")
+    print(f"main path {tag}: warm solve {wall:.3f} s wall (first "
+          f"{first_s:.3f} s) -> {conv / wall:.3f} converged solves/s; "
+          f"split (CUDA events, ms over {n_steps} steps): "
+          + ", ".join(f"{n} {v:.1f}" for n, v in split.items()))
+    failed = []
+    if conv != B:
+        failed.append(f"{B - conv} scenarios did not converge")
+    if not float(J_end.max()) < 0.06:
+        failed.append("J_end max outside the basin (0.06)")
+    if not bool(torch.isfinite(res.td.X).all()):
+        failed.append("non-finite trajectories")
+    for name, n in launches.items():
+        if n < 1:
+            failed.append(f"kernel {name} was not launched on the main path")
+    if launches["mono_ipm"] < n_steps:
+        failed.append("fewer mono_ipm launches than SCvx steps")
+    if failed:
+        print("main path: FAILED: " + "; ".join(failed), file=sys.stderr)
+        return 1
+
+    m = measures["mono_ipm"]
+    print(json.dumps({"kernels": [{
+        "name": "mono_ipm", "route": "cuda",
+        "source": "scpp_tpu_torch/csrc/mono_ipm.cu",
+        "replaces": "scpp_tpu/solver/ipm_mono.py:385",
+        "launches": launches["mono_ipm"],
+        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None}]}))
+    print(dev)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""Interior-point solver settings (counterpart of the ``IPMSettings``
+dataclass in ``scpp_tpu/solver/ipm.py``; the dense IPM itself is not
+ported yet). Field names and defaults match the reference exactly; see
+it for what each knob does."""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+__all__ = ["IPMSettings"]
+
+
+@dataclass(frozen=True)
+class IPMSettings:
+    iters: int = 25
+    step_frac: float = 0.99
+    eps_reg: float = 1e-10
+    rho_lift: float = 1.0
+    eps_feas: float = 1e-9
+    ruiz_iters: int = 10
+    refine_steps: int = 2
+    kkt: str = "cr"
+    warm_kappa: float = 0.1
+    matmul_precision: str = "highest"
+    kkt_precision: str = "highest"
+    refine_f64: bool = False
+    kkt_dtype: str = "working"
+    kkt_fused: bool = False
+    monolith: bool = False
+    mono_track_best: bool = True
+
+    def replace(self, **changes) -> "IPMSettings":
+        return dataclasses.replace(self, **changes)

@@ -1,0 +1,347 @@
+"""The monolithic IPM kernel against its plain version
+(``ipm_mono._solve_block``), on the same inputs.
+
+``scpp_tpu_torch/csrc/mono_ipm_body.cuh`` holds everything the kernel
+computes; ``mono_ipm.cu`` only launches it. On the CPU the header is
+compiled with g++ under a small shim (``__device__`` and friends empty,
+each CUDA thread a ``std::thread`` with its own ``threadIdx``,
+``__syncthreads`` a ``std::barrier``) and run block by block, so the
+kernel's arithmetic, its block-strided loops and its barriers are
+checked in float64. The ``cuda`` test launches the real kernel and skips
+without a GPU. This module imports no JAX, so it also runs on a machine
+that has only the port's dependencies:
+``python -m pytest tests/test_torch_mono_kernel.py --noconftest -q``.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from scpp_tpu_torch.algos.staged_problems import build_scvx_subproblem_staged
+from scpp_tpu_torch.models import RocketQuat
+from scpp_tpu_torch.models.base import batch_params
+from scpp_tpu_torch.ops.discretization import multiple_shooting
+from scpp_tpu_torch.solver import ipm_mono, mono_blocks
+from scpp_tpu_torch.solver.ipm import IPMSettings
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scpp_tpu_torch", "csrc")
+
+SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <math.h>
+#define __device__
+#define __host__
+#define __forceinline__ inline
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+extern thread_local Dim3 threadIdx;
+extern Dim3 blockDim;
+extern std::barrier<>* g_barrier;
+inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+"""
+
+# Built twice in parallel, once per element type (HOST_F32 or not), and
+# linked into one library: one instantiation per compiler halves the build.
+HARNESS = r"""
+#include "mono_ipm_body.cuh"
+#include <thread>
+#include <vector>
+
+template <typename T>
+int run_blocks(int nthreads, int B, int K, int w, int me, int l, int S,
+               const int* socs, int iters, int refine, int track,
+               double eps_reg, double rho, double eps_feas, double step_frac,
+               double kappa, T** in, T** out) {
+  mono::Dims d;
+  d.K = K; d.w = w; d.me = me; d.l = l; d.S = S;
+  int off = l;
+  for (int i = 0; i < S; ++i) {
+    d.soc_off[i] = off; d.soc_q[i] = socs[i]; off += socs[i];
+  }
+  d.mc = off; d.Wp = w + me; d.iters = iters; d.refine_steps = refine;
+  d.track_best = track; d.eps_reg = eps_reg; d.rho = rho;
+  d.eps_feas = eps_feas; d.step_frac = step_frac; d.warm_kappa = kappa;
+  const long long nw = (long long)K * w, ne = (long long)K * me,
+                  nc = (long long)K * d.mc;
+  std::vector<T> work(mono::workspace_elems(K, w, me, d.mc), NAN);
+  std::vector<T> smem(mono::smem_elems(w, me, d.mc, nthreads), NAN);
+  blockDim.x = nthreads;
+  for (int b = 0; b < B; ++b) {
+    std::barrier<> bar(nthreads);
+    g_barrier = &bar;
+    std::vector<std::thread> threads;
+    for (int t = 0; t < nthreads; ++t) {
+      threads.emplace_back([&, t]() {
+        threadIdx.x = t;
+        mono::Solver<T> s(
+            d, smem.data(), work.data(), in[0] + b * 2 * w * ne,
+            in[1] + b * 2 * w * nc, in[2] + b * ne, in[3] + b * nc,
+            in[4] + b * nw, in[5] + b * ne, in[6] + b * nc, in[7] + b * nw);
+        s.run(in[8] + b * 4, in[9] + b * nw, in[10] + b * ne,
+              in[11] + b * nc, out[0] + b * nw, out[1] + b * ne,
+              out[2] + b * nc, out[3] + b * nc, out[4] + b * 4);
+      });
+    }
+    for (auto& th : threads) th.join();
+  }
+  return 0;
+}
+
+#define HOST_RUN(name, T)                                                  \
+  extern "C" int name(int nthreads, int B, int K, int w, int me, int l,    \
+                      int S, const int* socs, int iters, int refine,       \
+                      int track, double eps_reg, double rho,               \
+                      double eps_feas, double step_frac, double kappa,     \
+                      T** in, T** out) {                                   \
+    return run_blocks<T>(nthreads, B, K, w, me, l, S, socs, iters, refine, \
+                         track, eps_reg, rho, eps_feas, step_frac, kappa,  \
+                         in, out);                                         \
+  }
+#ifdef HOST_F32
+HOST_RUN(host_run_f32, float)
+#else
+thread_local Dim3 threadIdx;
+Dim3 blockDim;
+std::barrier<>* g_barrier;
+HOST_RUN(host_run, double)
+
+// the signed block factor alone: M (n, n) -> L, L^{-1}
+extern "C" int host_chol(int nthreads, int w, int me, const double* M,
+                         double* L, double* Linv) {
+  mono::Dims d{};
+  d.K = 1; d.w = w; d.me = me; d.Wp = w + me;
+  const int n = w + me;
+  std::vector<double> work(mono::workspace_elems(1, w, me, 0), NAN);
+  std::vector<double> smem(mono::smem_elems(w, me, 0, nthreads), NAN);
+  blockDim.x = nthreads;
+  std::barrier<> bar(nthreads);
+  g_barrier = &bar;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nthreads; ++t) {
+    threads.emplace_back([&, t]() {
+      threadIdx.x = t;
+      mono::Solver<double> s(d, smem.data(), work.data(), nullptr, nullptr,
+                             nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr);
+      for (int i = t; i < n * n; i += nthreads) s.bufD[i] = M[i];
+      s.sync();
+      s.chol_inv();
+      for (int i = t; i < n * n; i += nthreads) {
+        L[i] = s.bufL[i];
+        Linv[i] = s.bufD[i];
+      }
+    });
+  }
+  for (auto& th : threads) th.join();
+  return 0;
+}
+#endif
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++20 compiler is needed to build the kernel body"
+    d = tmp_path_factory.mktemp("mono_host")
+    (d / "shim.h").write_text(SHIM)
+    (d / "harness.cpp").write_text(HARNESS)
+    lib = d / "libmono_host.so"
+    objs = [d / f"harness{i}.o" for i in range(2)]
+    builds = [subprocess.Popen(
+        [cxx, "-std=c++20", "-O1", "-c", "-fPIC", "-pthread", *flag,
+         "-include", str(d / "shim.h"), "-I", CSRC, "-o", str(o),
+         str(d / "harness.cpp")], stderr=subprocess.PIPE)
+        for o, flag in zip(objs, ([], ["-DHOST_F32"]))]
+    for b in builds:
+        _, err = b.communicate(timeout=120)
+        assert b.returncode == 0, err.decode()
+    subprocess.run([cxx, "-shared", "-pthread", "-o", str(lib),
+                    *map(str, objs)], check=True, capture_output=True,
+                   timeout=120)
+    so = ctypes.CDLL(str(lib))
+    for fn, c_t in ((so.host_run, ctypes.c_double),
+                    (so.host_run_f32, ctypes.c_float)):
+        fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 5
+                       + [ctypes.POINTER(ctypes.POINTER(c_t))] * 2)
+    P = ctypes.POINTER(ctypes.c_double)
+    so.host_chol.argtypes = [ctypes.c_int] * 3 + [P] * 3
+    return so
+
+
+def breakdown_block(w, me, broken, seed=5):
+    """A quasidefinite block L S L^T with the pivots of the ``broken``
+    columns given the wrong sign."""
+    n = w + me
+    rng = np.random.default_rng(seed)
+    Lt = np.tril(rng.standard_normal((n, n)), -1) + np.diag(1 + rng.random(n))
+    sig = np.array([1.0] * w + [-1.0] * me)
+    M = (Lt * sig) @ Lt.T
+    for j in broken:
+        M[j, j] -= sig[j] * 2 * Lt[j, j] ** 2
+    return M
+
+
+def host_solve(lib, statics, ins, nthreads):
+    K, w, me, l, socs, st = statics
+    mc = l + sum(socs)
+    B = ins[0].shape[0]
+    f32 = ins[0].dtype == torch.float32
+    ins = [np.ascontiguousarray(t.numpy()) for t in ins]
+    outs = [np.zeros((B,) + s, ins[0].dtype) for s in
+            ((K, w), (K, me), (K, mc), (K, mc), (1, 4))]
+    P = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
+    (lib.host_run_f32 if f32 else lib.host_run)(nthreads, B, K, w, me, l, len(socs),
+                 (ctypes.c_int * len(socs))(*socs), st.iters,
+                 st.refine_steps, int(st.mono_track_best), st.eps_reg,
+                 st.rho_lift, st.eps_feas, st.step_frac, st.warm_kappa,
+                 (P * 12)(*[a.ctypes.data_as(P) for a in ins]),
+                 (P * 5)(*[a.ctypes.data_as(P) for a in outs]))
+    return [torch.from_numpy(o) for o in outs]
+
+
+def rocketquat_inputs(settings, warm):
+    """_prep's inputs for the step-0 subproblems of two dispersed
+    RocketQuat K=5 scenarios (float64)."""
+    p = batch_params(RocketQuat.default_params(torch.float64), 2)
+    p = p.replace(x_init=p.x_init * torch.tensor([[1.0], [1.02]],
+                                                 dtype=torch.float64))
+    p = RocketQuat.nondimensionalize(p)
+    td = RocketQuat.init_trajectory(p, 5, True)
+    dd = multiple_shooting(RocketQuat, RocketQuat.param_vector(p), td,
+                           substeps=2)
+    prog = build_scvx_subproblem_staged(
+        RocketQuat, p, td, dd, torch.full((2,), 5.0, dtype=torch.float64),
+        1e3, RocketQuat.constraint_ref(p, td))
+    f = dict(dtype=torch.float64)
+    rng = np.random.default_rng(4)
+    if warm:
+        w = [torch.tensor(0.1 * rng.standard_normal((2, 5, n)))
+             for n in (prog.w, prog.me)]
+        w.append(torch.tensor(rng.random((2, 5, prog.mc))))
+    else:
+        w = [torch.zeros((2, 5, n), **f) for n in (prog.w, prog.me, prog.mc)]
+    ins, _ = ipm_mono._prep(prog, settings, *w,
+                            torch.full((2,), warm, dtype=torch.bool))
+    statics = (prog.K, prog.w, prog.me, prog.l, tuple(prog.soc_sizes),
+               settings)
+    return statics, ins
+
+
+FLAGSHIP = IPMSettings(iters=10, eps_reg=1e-4, eps_feas=1e-4,
+                       refine_steps=0, monolith=True)
+
+
+@pytest.mark.parametrize("case", [
+    ("cold", FLAGSHIP, 1), ("warm", FLAGSHIP, 8),
+    ("refine", FLAGSHIP.replace(refine_steps=1, iters=6), 8),
+    ("last_iterate", FLAGSHIP.replace(mono_track_best=False, iters=7), 4)],
+    ids=lambda c: f"{c[0]}-{c[2]}threads")
+def test_kernel_body_matches_plain(host_lib, case):
+    """Float64 agreement to 1e-6 relative, as chip_smoke.py asks of the
+    kernel on the card: the thread count changes the order of the block
+    reductions, and 6-10 IPM iterations amplify that rounding to ~1e-9."""
+    name, settings, nthreads = case
+    statics, ins = rocketquat_inputs(settings, warm=name == "warm")
+    ref = ipm_mono._solve_block(statics, *ins)
+    got = host_solve(host_lib, statics, ins, nthreads)
+    for a, b in zip(got[:4], ref[:4]):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-6 * (1 + float(
+            b.abs().max()))
+    np.testing.assert_array_equal(got[4][:, 0, 1].numpy(),
+                                  ref[4][:, 0, 1].numpy())
+    np.testing.assert_allclose(got[4][:, 0, 0].numpy(),
+                               ref[4][:, 0, 0].numpy(), rtol=1e-6)
+
+
+# The main path's dtype: the kernel in float32 must land within this of
+# the float64 plain solution (max error over x/y/s/z relative to
+# 1 + max|float64 value|) on the cold K=5 programs below, about four times
+# the largest reading of the kernel body on the CPU (5.0e-4 with one
+# thread, 2.8e-4 with eight; the plain version in float32: 8.9e-5;
+# test_kernel_body_float32_near_float64 prints them under -s).
+F32_CEILING = 2e-3
+
+
+def float32_distance(out32, ref64):
+    return max(float((a.double() - b).abs().max() / (1 + b.abs().max()))
+               for a, b in zip(out32[:4], ref64[:4]))
+
+
+@pytest.mark.parametrize("nthreads", [1, 8])
+def test_kernel_body_float32_near_float64(host_lib, nthreads):
+    """The kernel body instantiated in float32 against the plain float64
+    solution, with the same per-scenario iteration counts."""
+    statics, ins = rocketquat_inputs(FLAGSHIP, warm=False)
+    ref = ipm_mono._solve_block(statics, *ins)
+    ins32 = [t.float() for t in ins]
+    got = host_solve(host_lib, statics, ins32, nthreads)
+    assert all(bool(torch.isfinite(a).all()) for a in got[:4])
+    dist = float32_distance(got, ref)
+    print(f"float32 distance from the float64 plain solution: kernel body "
+          f"{dist:.2e}, plain version "
+          f"{float32_distance(ipm_mono._solve_block(statics, *ins32), ref):.2e}")
+    assert dist <= F32_CEILING
+    np.testing.assert_array_equal(got[4][:, 0, 1].numpy(),
+                                  ref[4][:, 0, 1].numpy())
+
+
+@pytest.mark.parametrize("seed,broken", [
+    (5, ()), (7, (7,)), (7, (15,)), (5, (20,)), (5, (12,)), (5, (3, 19))],
+    ids=lambda v: str(v) if isinstance(v, int) else
+    "cols" + "-".join(map(str, v)) if v else "intact")
+def test_kernel_factor_floors_pivots_as_plain(host_lib, seed, broken):
+    """The kernel's signed block factor (``chol_inv``) against the plain
+    one on blocks with wrong-sign pivots (the cases that
+    test_torch_ipm_mono.py holds against the reference): the same floor
+    and panels, the same huge finite factors, NaN where it overflows."""
+    M = breakdown_block(16, 8, broken, seed)
+    L_ref, Linv_ref = (a[0].numpy() for a in mono_blocks.signed_chol_inv(
+        torch.tensor(M[None]), 16))
+    L, Linv = np.zeros_like(M), np.zeros_like(M)
+    P = ctypes.POINTER(ctypes.c_double)
+    host_lib.host_chol(8, 16, 8, *(np.ascontiguousarray(a).ctypes.data_as(P)
+                                   for a in (M, L, Linv)))
+    if np.isfinite(L_ref).all():
+        np.testing.assert_allclose(L, L_ref, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(Linv, Linv_ref, rtol=1e-9, atol=1e-12)
+    else:
+        # only L^{-1} leaves chol_inv: NaN as a whole, as the plain one
+        assert not np.isfinite(L).all()
+        assert np.isnan(Linv).all() and np.isnan(Linv_ref).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matches_plain_on_card(dtype):
+    """float64: kernel and plain version agree to 1e-6 with the same
+    iteration counts. float32: the kernel lands within F32_CEILING of the
+    float64 plain solution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from scpp_tpu_torch import kernels
+    statics, ins = rocketquat_inputs(FLAGSHIP, warm=False)
+    ins64 = [t.to("cuda") for t in ins]
+    ref64 = ipm_mono._solve_block(statics, *ins64)
+    before = kernels.launches["mono_ipm"]
+    got = ipm_mono.mono_solve(statics, *[t.to(dtype) for t in ins64])
+    assert kernels.launches["mono_ipm"] == before + 1
+    if dtype == torch.float64:
+        for a, b in zip(got[:4], ref64[:4]):
+            assert float((a - b).abs().max()) <= 1e-6 * (1 + float(
+                b.abs().max()))
+        assert torch.equal(got[4][:, 0, 1], ref64[4][:, 0, 1])
+        return
+    assert all(bool(torch.isfinite(a).all()) for a in got[:4])
+    dist = float32_distance(got, ref64)
+    print(f"float32 kernel distance from the float64 plain solution {dist:.2e}")
+    assert dist <= F32_CEILING
