@@ -6,13 +6,17 @@ Phases, one line each: the card; the build of every kernel from
 ``scpp_tpu_torch/csrc``; each kernel held against its plain PyTorch
 version at the main path's shapes; the main path itself (64 dispersed
 RocketQuat K=30 SCvx solves at the flagship configuration, through
-``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count of every
-kernel. Then one JSON line of kernel measurements, the card's name and
-power limit, and the result line. Any failure exits non-zero before the
-result line; without a CUDA device it exits non-zero at once.
+``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count of its
+kernel; the same solves on the fused dynamics path
+(``fuse_dynamics=True``: discretize and resim as one kernel launch each)
+with the launch counts of its three kernels. Then one JSON line of
+kernel measurements, the card's name and power limit, and the result
+line. Any failure exits non-zero before the result line; without a CUDA
+device it exits non-zero at once.
 """
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -29,6 +33,12 @@ B, K = 64, 30
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores, 700 W
 F32_CEILING = 1e-2                  # see "kernel vs plain" in main()
+# float32 ceilings of the fused kernels (see check_fused_kernels), about
+# four times the largest reading on the card at these shapes: 2.78e-7
+# (disc_mono; plain 2.70e-7) and 2.95e-6 (resim_mono; plain 2.99e-6,
+# the rounding of the 406-term float32 sum of the defect)
+DISC_F32_CEILING = 1.1e-6
+RESIM_F32_CEILING = 1.2e-5
 
 
 def card():
@@ -58,7 +68,8 @@ def dispersed_params(dtype):
 
 
 def flagship_programs(cfg, dtype):
-    """The step-0 subproblems of the main path, built by the port."""
+    """The step-0 subproblems of the main path, built by the port, with
+    the trajectories and parameter vectors they were built around."""
     from scpp_tpu_torch.algos.staged_problems import \
         build_scvx_subproblem_staged
     from scpp_tpu_torch.models import RocketQuat
@@ -72,7 +83,7 @@ def flagship_programs(cfg, dtype):
     trust = torch.full((B,), cfg.trust_region, dtype=dtype, device="cuda")
     return build_scvx_subproblem_staged(
         RocketQuat, p, td, dd, trust, cfg.weight_virtual_control,
-        RocketQuat.constraint_ref(p, td))
+        RocketQuat.constraint_ref(p, td)), td, par
 
 
 def cuda_ms(fn, reps):
@@ -113,6 +124,89 @@ def mono_work(prog, settings, iters, cold):
     return nbytes, 2.0 * fmas
 
 
+# Operations of one RocketQuat flow-map evaluation, counted from
+# csrc/disc_mono_body.cuh: 108 for the value (rotation matrix 39, mass
+# rate 8, velocity rate 21, quaternion rate 25, angular rate 15) and 193
+# more for the tangent of one input direction (a product of two dual
+# numbers adds 3, a quotient 3, a square root 2, a sum 1, a scaling 1).
+FLOW_OPS, TANGENT_OPS = 108, 193
+
+
+def rk_counts(method):
+    """Evaluated stages of a step and the slope terms summed in a step
+    (stage inputs plus the step's own combination), as the kernels do
+    them: dopri5's last stage has weight 0 and no reader."""
+    from scpp_tpu_torch.ops.integrators import TABLEAUS
+    c, a_rows, b = TABLEAUS[method]
+    stages = len(c) - (1 if b[-1] == 0.0 else 0)
+    terms = sum(len(a_rows[i]) for i in range(stages)) + sum(
+        1 for w in b if w != 0.0)
+    return stages, terms
+
+
+def disc_work(X, U, substeps, method):
+    """Bytes (inputs once, outputs once) and operations of one fused
+    discretization at these shapes: per interval and stage the flow map
+    and its n + m tangents, r = f - A x - B u, A Y over the ncols columns,
+    the R columns and the dt scaling; then the slope sums."""
+    Bn, K, n = X.shape
+    m = U.shape[-1]
+    foh = U.shape[1] == K
+    ncols = n + m + (m if foh else 0) + 1
+    stages, terms = rk_counts(method)
+    per_stage = (FLOW_OPS + (n + m) * TANGENT_OPS + n * (2 * n + 2 * m + 2)
+                 + ncols * n * 2 * n + n * (ncols - n)
+                 + (n * 2 * m if foh else 0) + n * (ncols + 1))
+    per_step = stages * per_stage + terms * 2 * n * (ncols + 1)
+    flops = Bn * (K - 1) * substeps * per_step
+    esz = X.element_size()
+    nbytes = esz * (X.numel() + U.numel() + Bn * 11
+                    + Bn * (K - 1) * n * ncols)
+    return nbytes, flops
+
+
+def resim_work(X, U, substeps, method):
+    """Bytes and operations of one fused resimulation: per interval and
+    stage the flow map, the input interpolation and the dt scaling; the
+    slope sums; the defect's |.| sum."""
+    Bn, K, n = X.shape
+    m = U.shape[-1]
+    stages, terms = rk_counts(method)
+    per_step = stages * (FLOW_OPS + 2 * m + n) + terms * 2 * n
+    flops = Bn * (K - 1) * (substeps * per_step + 3 * n)
+    nbytes = X.element_size() * (X.numel() + U.numel() + Bn * 12)
+    return nbytes, flops
+
+
+def unported_work():
+    """Bytes and operations of the two TPU kernels still to port, at the
+    shapes where they would run for the main path's programs (B=64, K=30,
+    w=32, me=16, so Wp=48; SOC sizes (5, 3, 3, 4, 4, 3) per stage), one
+    call each, float32:
+    - cr_pallas._cr_fused_kernel: one single-RHS solve from a cyclic
+      reduction factor; each odd block of each level (K-1 in all) holds
+      three Wp x Wp blocks (L^{-1}, R, Q) read once, plus the root's
+      L^{-1}, b and x; 3 row-vector products per odd block down, 3 up,
+      2 at the root.
+    - soc_pallas._soc_kernel: the projection of every cone of the batch
+      onto the SOC, each cone read and written once, about 3q + 4
+      operations a cone (the norm, the three-case select, the scaling)."""
+    Wp, esz, socs = 48, 4, (5, 3, 3, 4, 4, 3)
+    odd = K - 1
+    cr = (esz * B * (odd * 3 * Wp * Wp + Wp * Wp + 2 * K * Wp),
+          B * (6 * odd + 2) * 2 * Wp * Wp)
+    n_cones = B * K
+    soc = (esz * 2 * n_cones * sum(socs),
+           n_cones * sum(3 * q + 4 for q in socs))
+    return {"cr_fused (kernel 4)": cr, "soc_project (kernel 5)": soc}
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
 def cast(prog, dtype):
     from scpp_tpu_torch.models.base import map_tensors
     return map_tensors(prog, lambda t: t.to(dtype))
@@ -150,13 +244,137 @@ def rel_diffs(a, b):
     return out
 
 
+def check_fused_kernels(tag, cases):
+    """disc_mono and resim_mono against their plain versions at the main
+    path's shapes (FOH, dopri5, 6 and 8 steps). ``cases`` maps a name to
+    float64 (X, U, t, par) on the card.
+
+    The gate is float64: kernel and plain version differ only in the
+    order of the 14-term sums (and the card's fused multiply-adds), so
+    they must agree to 1e-9 relative to 1 + max |plain| per output. In
+    float32, the main path's dtype, the kernel must land within a fixed
+    ceiling of the float64 plain result (DISC_F32_CEILING,
+    RESIM_F32_CEILING), about four times the largest reading. Returns
+    (ok, measures)."""
+    from scpp_tpu_torch.models import RocketQuat
+    from scpp_tpu_torch.ops import disc_mono
+    cfg = flagship_config()
+    specs = {"disc_mono": (disc_mono._disc_cuda, disc_mono._disc_plain,
+                           cfg.substeps, DISC_F32_CEILING),
+             "resim_mono": (disc_mono._resim_cuda, disc_mono._resim_plain,
+                            cfg.sim_substeps, RESIM_F32_CEILING)}
+
+    def outs(r):
+        return [o for o in (r if isinstance(r, tuple) else (r,))
+                if o is not None]
+
+    def dist(a, b):
+        return max(float((u.double() - v).abs().max() / (1 + v.abs().max()))
+                   for u, v in zip(outs(a), outs(b)))
+
+    ok, measures = True, {}
+    for name, (kern, plain, steps, ceiling) in specs.items():
+        max_err = 0.0
+        for case, ins64 in cases.items():
+            args = (steps, cfg.integrator, True)
+            ins32 = [a.float() for a in ins64]
+            p64 = plain(RocketQuat, *ins64, *args)
+            k64 = kern(RocketQuat, *ins64, *args)
+            k32 = kern(RocketQuat, *ins32, *args)
+            p32 = plain(RocketQuat, *ins32, *args)
+            torch.cuda.synchronize()
+            d64, dk, dp = dist(k64, p64), dist(k32, p64), dist(p32, p64)
+            finite = all(bool(torch.isfinite(o).all()) for o in outs(k32))
+            max_err = max(max_err, max(float((a - b).abs().max())
+                                       for a, b in zip(outs(k32), outs(p32))))
+            good = d64 <= 1e-9 and dk <= ceiling and finite
+            print(f"  {name} {case}: float64 kernel vs plain {d64:.2e} "
+                  f"(tolerance 1e-9); float32 vs float64 plain, kernel / "
+                  f"plain: {dk:.2e} / {dp:.2e} (kernel ceiling {ceiling:g})"
+                  f" -> {'ok' if good else 'FAIL'}")
+            ok &= good
+        ins32 = [a.float() for a in cases["step 0"]]
+        args = (RocketQuat, *ins32, steps, cfg.integrator, True)
+        ms = cuda_ms(lambda: kern(*args), 20)
+        plain_ms = cuda_ms(lambda: plain(*args), 2)
+        work = disc_work if name == "disc_mono" else resim_work
+        nbytes, flops = work(ins32[0], ins32[1], steps, cfg.integrator)
+        b_ms, b_by = bound(nbytes, flops)
+        measures[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+        print(f"kernel time {tag}: {name} float32 {ms:.4f} ms per launch "
+              f"(B={B} K={K}, {steps} {cfg.integrator} steps), plain {plain_ms:.1f} "
+              f"ms; bound {b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.4f} GFLOP)")
+    return ok, measures
+
+
+def run_path(tag, label, cfg, params, kernel_names):
+    """First call, then a warm call with the CUDA-event phase split and
+    the launch counts; gates the warm call's results. Returns (ok,
+    launches)."""
+    from scpp_tpu_torch import kernels
+    from scpp_tpu_torch.algos.scvx import solve_scvx
+    from scpp_tpu_torch.models import RocketQuat
+    t0 = time.perf_counter()
+    solve_scvx(RocketQuat, params, cfg, device="cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    events = defaultdict(list)
+
+    @contextlib.contextmanager
+    def phase(name):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        yield
+        b.record()
+        events[name].append((a, b))
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = solve_scvx(RocketQuat, params, cfg, device="cuda", phase=phase)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kernels.launches[n] for n in kernel_names}
+
+    conv = int(res.converged.sum())
+    J_end = res.nonlinear_cost[:, -1]
+    n_steps = int(res.steps.max())
+    split = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in
+             events.items()}
+    total = sum(split.values())
+    print(f"{label} {tag}: {conv}/{B} converged; J_end max "
+          f"{float(J_end.max()):.4f} mean {float(J_end.mean()):.4f}; "
+          f"SCvx steps {n_steps} (per scenario "
+          f"{int(res.steps.min())}-{n_steps}); launches "
+          + ", ".join(f"{n} {c}" for n, c in launches.items()))
+    print(f"{label} {tag}: warm solve {wall:.3f} s wall (first "
+          f"{first_s:.3f} s) -> {conv / wall:.3f} converged solves/s; "
+          f"split (CUDA events, ms over {n_steps} steps): "
+          + ", ".join(f"{n} {v:.1f} ({100 * v / total:.1f}%)"
+                      for n, v in split.items()))
+    failed = []
+    if conv != B:
+        failed.append(f"{B - conv} scenarios did not converge")
+    if not float(J_end.max()) < 0.06:
+        failed.append("J_end max outside the basin (0.06)")
+    if not bool(torch.isfinite(res.td.X).all()):
+        failed.append("non-finite trajectories")
+    for name, n in launches.items():
+        if n < max(n_steps, 1):
+            failed.append(f"{name}: {n} launches in {n_steps} SCvx steps")
+    if failed:
+        print(f"{label}: FAILED: " + "; ".join(failed), file=sys.stderr)
+    return not failed, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from scpp_tpu_torch import kernels
-    from scpp_tpu_torch.algos.scvx import solve_scvx
-    from scpp_tpu_torch.models import RocketQuat
     from scpp_tpu_torch.solver import ipm_mono
 
     dev = card()
@@ -188,7 +406,7 @@ def main():
     # 0.19 away), so there float32 is only printed.
     cfg = flagship_config()
     st = cfg.solver
-    prog64 = flagship_programs(cfg, torch.float64)
+    prog64, td64, par64 = flagship_programs(cfg, torch.float64)
     prog32 = cast(prog64, torch.float32)
     statics = (prog64.K, prog64.w, prog64.me, prog64.l,
                tuple(prog64.soc_sizes), st)
@@ -222,90 +440,63 @@ def main():
         warm64 = (rk64.x_stage, rk64.y_stage, rk64.z_stage)
         warm32 = warm64
         if case == "cold":
+            # the main path accepts its first subproblem solution outright
+            td1 = td64.replace(X=prog64.extract(rk64.x, "X").contiguous(),
+                               U=prog64.extract(rk64.x, "U").contiguous())
             iters = k32[4][:, 0, 1].tolist()
             ms = cuda_ms(lambda: ipm_mono._mono_cuda(statics, *ins32), 5)
             plain_ms = cuda_ms(
                 lambda: ipm_mono._solve_block(statics, *ins32), 2)
     nbytes, flops = mono_work(prog32, st, iters, cold=True)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
-    measures = {"mono_ipm": dict(
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes > t_ops else "operations")}
+    b_ms, b_by = bound(nbytes, flops)
+    measures = {"mono_ipm": dict(max_abs_err=max_err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by)}
     print(f"kernel time {tag}: mono_ipm float32 {ms:.3f} ms per launch "
           f"(B={B} cold, IPM iterations per scenario {min(iters):.0f}-"
           f"{max(iters):.0f}), plain {plain_ms:.1f} ms; bound "
-          f"{max(t_bytes, t_ops):.4f} ms by {measures['mono_ipm']['bound_by']}"
-          f" ({nbytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP)")
-    if not ok_all:
+          f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.2f} GFLOP)")
+    print(f"kernel vs plain {tag}: disc_mono and resim_mono B={B} K={K} "
+          f"FOH dopri5, on the step-0 trajectories of the main path and on "
+          f"those after its first (accepted) step")
+    ok_fused, fused = check_fused_kernels(tag, {
+        "step 0": [td64.X, td64.U, td64.t, par64],
+        "step 1": [td1.X, td1.U, td1.t, par64]})
+    measures.update(fused)
+    for name, (nbytes, flops) in unported_work().items():
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"bound {tag}: {name}, not ported, one call at the main "
+              f"path's shapes: {b_ms:.6f} ms by {b_by} ({nbytes / 1e6:.3f} "
+              f"MB, {flops / 1e6:.3f} MFLOP)")
+    if not (ok_all and ok_fused):
         print("kernel vs plain: FAILED", file=sys.stderr)
         return 1
 
-    # ---- the main path ----
+    # ---- the main path, then the fused dynamics path ----
     params = dispersed_params(torch.float32)
-    t0 = time.perf_counter()
-    solve_scvx(RocketQuat, params, cfg, device="cuda")
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-
-    events = defaultdict(list)
-
-    @contextlib.contextmanager
-    def phase(name):
-        a, b = torch.cuda.Event(enable_timing=True), \
-            torch.cuda.Event(enable_timing=True)
-        a.record()
-        yield
-        b.record()
-        events[name].append((a, b))
-
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = solve_scvx(RocketQuat, params, cfg, device="cuda", phase=phase)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-
-    conv = int(res.converged.sum())
-    J_end = res.nonlinear_cost[:, -1]
-    n_steps = int(res.steps.max())
-    split = {n: sum(a.elapsed_time(b) for a, b in v) for n, v in
-             events.items()}
-    print(f"main path {tag}: {conv}/{B} converged; J_end max "
-          f"{float(J_end.max()):.4f} mean {float(J_end.mean()):.4f}; "
-          f"SCvx steps {n_steps} (per scenario "
-          f"{int(res.steps.min())}-{n_steps}); mono_ipm launches "
-          f"{launches['mono_ipm']}")
-    print(f"main path {tag}: warm solve {wall:.3f} s wall (first "
-          f"{first_s:.3f} s) -> {conv / wall:.3f} converged solves/s; "
-          f"split (CUDA events, ms over {n_steps} steps): "
-          + ", ".join(f"{n} {v:.1f}" for n, v in split.items()))
-    failed = []
-    if conv != B:
-        failed.append(f"{B - conv} scenarios did not converge")
-    if not float(J_end.max()) < 0.06:
-        failed.append("J_end max outside the basin (0.06)")
-    if not bool(torch.isfinite(res.td.X).all()):
-        failed.append("non-finite trajectories")
-    for name, n in launches.items():
-        if n < 1:
-            failed.append(f"kernel {name} was not launched on the main path")
-    if launches["mono_ipm"] < n_steps:
-        failed.append("fewer mono_ipm launches than SCvx steps")
-    if failed:
-        print("main path: FAILED: " + "; ".join(failed), file=sys.stderr)
+    ok_main, launches = run_path(tag, "main path", cfg, params,
+                                 ["mono_ipm"])
+    ok_fused, fused_launches = run_path(
+        tag, "fused path", dataclasses.replace(cfg, fuse_dynamics=True),
+        params, ["disc_mono", "resim_mono", "mono_ipm"])
+    if not (ok_main and ok_fused):
         return 1
+    launches.update({n: fused_launches[n] for n in ("disc_mono",
+                                                    "resim_mono")})
 
-    m = measures["mono_ipm"]
-    print(json.dumps({"kernels": [{
-        "name": "mono_ipm", "route": "cuda",
-        "source": "scpp_tpu_torch/csrc/mono_ipm.cu",
-        "replaces": "scpp_tpu/solver/ipm_mono.py:385",
-        "launches": launches["mono_ipm"],
-        "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None}]}))
+    sources = {"mono_ipm": ("scpp_tpu_torch/csrc/mono_ipm.cu",
+                            "scpp_tpu/solver/ipm_mono.py:385"),
+               "disc_mono": ("scpp_tpu_torch/csrc/disc_mono.cu",
+                             "scpp_tpu/ops/disc_mono.py:157"),
+               "resim_mono": ("scpp_tpu_torch/csrc/disc_mono.cu",
+                              "scpp_tpu/ops/disc_mono.py:320")}
+    # library_ms: no single PyTorch call solves an SOCP or integrates a
+    # variational or nonlinear ODE
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=src, replaces=rep,
+        launches=launches[name], **measures[name], library_ms=None)
+        for name, (src, rep) in sources.items()]}))
     print(dev)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

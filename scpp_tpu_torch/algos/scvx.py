@@ -29,6 +29,8 @@ from scpp_tpu_torch.algos.common import (linear_defect_cost,
 from scpp_tpu_torch.algos.staged_problems import build_scvx_subproblem_staged
 from scpp_tpu_torch.configs.algorithms import SCvxConfig
 from scpp_tpu_torch.models.base import map_tensors
+from scpp_tpu_torch.ops.disc_mono import (multiple_shooting_fused,
+                                          nonlinear_defect_cost_fused)
 from scpp_tpu_torch.ops.discretization import multiple_shooting
 from scpp_tpu_torch.solver.ipm_staged import solve_staged_ipm
 from scpp_tpu_torch.trajectory import TrajectoryData
@@ -80,9 +82,9 @@ def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
     if cfg.backend != "staged" or not cfg.l1_split:
         raise NotImplementedError("only backend='staged' with l1_split is "
                                   "ported")
-    if cfg.fuse_dynamics:
-        raise NotImplementedError("the fused dynamics kernels are not "
-                                  "ported yet")
+    if not cfg.solver.monolith:
+        raise NotImplementedError("only the monolithic staged IPM is ported "
+                                  "(IPMSettings(monolith=True))")
     _full_fp32(device)
     params = map_tensors(params, lambda t: t.to(device))
     if cfg.nondimensionalize:
@@ -95,6 +97,12 @@ def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
         if cfg.nondimensionalize:
             td = model.scale_trajectory(params, td)
     ref = model.constraint_ref(params, td)
+    # fuse_dynamics: the discretize and resim phases as one kernel launch
+    # each (ops/disc_mono.py), as the reference routes them
+    shoot = multiple_shooting_fused if cfg.fuse_dynamics \
+        else multiple_shooting
+    resim = nonlinear_defect_cost_fused if cfg.fuse_dynamics \
+        else nonlinear_defect_cost
 
     B = td.X.shape[0]
     f = dict(dtype=td.X.dtype, device=td.X.device)
@@ -115,8 +123,8 @@ def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
     i = 0
     while i < cfg.solve_budget and not bool(done.all()):
         with phase("discretize"):
-            dd = multiple_shooting(model, par, td, substeps=cfg.substeps,
-                                   method=cfg.integrator)
+            dd = shoot(model, par, td, substeps=cfg.substeps,
+                       method=cfg.integrator)
         x_trust = (trust * (cfg.state_trust_region / cfg.trust_region)
                    if cfg.state_trust_region else None)
         with phase("build"):
@@ -131,8 +139,8 @@ def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
                             U=prog.extract(res.x, "U"))
         with phase("resim"):
             L = linear_defect_cost(new_td, dd)
-            J_new = nonlinear_defect_cost(model, par, new_td,
-                                          cfg.sim_substeps, cfg.integrator)
+            J_new = resim(model, par, new_td, cfg.sim_substeps,
+                          cfg.integrator)
 
         first = i == 0
         actual = last_J - J_new

@@ -29,7 +29,7 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"mono_ipm": 0}
+launches = {"mono_ipm": 0, "disc_mono": 0, "resim_mono": 0}
 _libs = {}
 
 

@@ -1,0 +1,370 @@
+"""The fused discretize and resim kernels against their plain versions
+(``ops/disc_mono._disc_plain`` and ``_resim_plain``), and the fused SCvx
+path against the unfused one.
+
+``scpp_tpu_torch/csrc/disc_mono_body.cuh`` holds everything the two
+kernels compute; ``disc_mono.cu`` only launches it. On the CPU the header
+is compiled with g++ under ``csrc/host_shim.h`` (each CUDA thread a
+``std::thread``, ``__syncthreads`` a barrier) and run block by block, so
+the kernels' arithmetic, their per-thread roles and their barriers are
+checked here in float64 and float32; the ``cuda`` test launches the real
+kernels and skips without a GPU. The plain versions are held against the
+JAX package in test_torch_dynamics.py. This module imports no JAX:
+``python -m pytest tests/test_torch_disc_mono.py --noconftest -q``.
+"""
+
+import ctypes
+import dataclasses
+import functools
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+from torch.func import jacfwd, vmap
+
+from scpp_tpu_torch.algos.scvx import solve_scvx
+from scpp_tpu_torch.configs.algorithms import SCvxConfig
+from scpp_tpu_torch.models import RocketQuat
+from scpp_tpu_torch.models.base import batch_params
+from scpp_tpu_torch.ops import disc_mono
+from scpp_tpu_torch.solver.ipm import IPMSettings
+from scpp_tpu_torch.trajectory import TrajectoryData
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "scpp_tpu_torch", "csrc")
+F64 = torch.float64
+K, SUBSTEPS = 5, 3
+VARIANTS = [(True, "dopri5"), (True, "rk4"), (False, "dopri5"),
+            (False, "rk4")]
+VARIANT_IDS = ["foh-dopri5", "foh-rk4", "zoh-dopri5", "zoh-rk4"]
+
+# Built once per element type, in parallel (HOST_F32 or not), and linked
+# into one library.
+HARNESS = r"""
+#include "disc_mono_body.cuh"
+#include <thread>
+#include <vector>
+
+template <class F>
+void run_block(int nthreads, F&& body) {
+  std::barrier<> bar(nthreads);
+  g_barrier = &bar;
+  blockDim.x = nthreads;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nthreads; ++t)
+    threads.emplace_back([&, t]() { threadIdx.x = t; body(t); });
+  for (auto& th : threads) th.join();
+}
+
+template <typename T>
+int disc_run(int method, int foh, int B, int K, int KU, int substeps,
+             const T* X, const T* U, const T* t, const T* par, T* A, T* Bm,
+             T* C, T* z) {
+  return disc::dispatch(sizeof(T), 0, method, foh, -1,
+      [&](auto mdl, auto tab, auto fh, auto) {
+        using Model = decltype(mdl);
+        using Tab = decltype(tab);
+        constexpr bool FOH = decltype(fh)::value;
+        std::vector<T> smem(disc::disc_smem_elems<Model>());
+        for (long long iv = 0; iv < (long long)B * (K - 1); ++iv)
+          run_block(32, [&](int tid) {
+            disc::disc_block<Model, Tab, FOH, T>(iv, tid, K, KU, substeps,
+                                                 X, U, t, par, A, Bm, C, z,
+                                                 smem.data());
+          });
+        return 0;
+      });
+}
+
+template <typename T>
+int resim_run(int method, int foh, int nthreads, int B, int K, int KU,
+              int substeps, const T* X, const T* U, const T* t,
+              const T* par, T* J) {
+  return disc::dispatch(sizeof(T), 0, method, foh, -1,
+      [&](auto mdl, auto tab, auto fh, auto) {
+        using Model = decltype(mdl);
+        using Tab = decltype(tab);
+        constexpr bool FOH = decltype(fh)::value;
+        std::vector<T> red(K - 1);
+        for (long long b = 0; b < B; ++b)
+          run_block(nthreads, [&](int tid) {
+            disc::resim_block<Model, Tab, FOH, T>(b, tid, nthreads, K, KU,
+                                                  substeps, X, U, t, par, J,
+                                                  red.data());
+          });
+        return 0;
+      });
+}
+
+#define HOST_RUN(sfx, T)                                                  \
+  extern "C" int host_disc##sfx(int method, int foh, int B, int K, int KU, \
+                                int substeps, const T* X, const T* U,     \
+                                const T* t, const T* par, T* A, T* Bm,    \
+                                T* C, T* z) {                             \
+    return disc_run<T>(method, foh, B, K, KU, substeps, X, U, t, par, A,  \
+                       Bm, C, z);                                         \
+  }                                                                       \
+  extern "C" int host_resim##sfx(int method, int foh, int nthreads, int B, \
+                                 int K, int KU, int substeps, const T* X, \
+                                 const T* U, const T* t, const T* par,    \
+                                 T* J) {                                  \
+    return resim_run<T>(method, foh, nthreads, B, K, KU, substeps, X, U,  \
+                        t, par, J);                                       \
+  }
+#ifdef HOST_F32
+HOST_RUN(_f32, float)
+#else
+thread_local Dim3 threadIdx;
+Dim3 blockDim;
+std::barrier<>* g_barrier;
+HOST_RUN(, double)
+
+// f (N, n) and [A | B] (N, n, n + m) of the model on dual numbers, one
+// direction at a time, as the discretize kernel's threads evaluate them
+extern "C" int host_flow_jac(int N, const double* x, const double* u,
+                             const double* par, double* f, double* J) {
+  using M = disc::RocketQuat;
+  using D = disc::Dual<double>;
+  constexpr int n = M::n, m = M::m;
+  for (int i = 0; i < N; ++i) {
+    for (int j = 0; j < n + m; ++j) {
+      D xd[n], ud[m], fd[n];
+      for (int r = 0; r < n; ++r) xd[r] = D(x[i * n + r], r == j);
+      for (int r = 0; r < m; ++r) ud[r] = D(u[i * m + r], n + r == j);
+      M::flow(xd, ud, par + i * M::p, fd);
+      for (int r = 0; r < n; ++r) {
+        J[(i * n + r) * (n + m) + j] = fd[r].d;
+        if (j == 0) f[i * n + r] = fd[r].v;
+      }
+    }
+  }
+  return 0;
+}
+#endif
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "a C++20 compiler is needed to build the kernel body"
+    d = tmp_path_factory.mktemp("disc_host")
+    (d / "harness.cpp").write_text(HARNESS)
+    lib = d / "libdisc_host.so"
+    objs = [d / f"harness{i}.o" for i in range(2)]
+    builds = [subprocess.Popen(
+        [cxx, "-std=c++20", "-O1", "-c", "-fPIC", "-pthread", *flag,
+         "-include", os.path.join(CSRC, "host_shim.h"), "-I", CSRC,
+         "-o", str(o), str(d / "harness.cpp")], stderr=subprocess.PIPE)
+        for o, flag in zip(objs, ([], ["-DHOST_F32"]))]
+    for b in builds:
+        _, err = b.communicate(timeout=120)
+        assert b.returncode == 0, err.decode()
+    subprocess.run([cxx, "-shared", "-pthread", "-o", str(lib),
+                    *map(str, objs)], check=True, capture_output=True,
+                   timeout=120)
+    so = ctypes.CDLL(str(lib))
+    for sfx, c_t in (("", ctypes.c_double), ("_f32", ctypes.c_float)):
+        P = ctypes.POINTER(c_t)
+        getattr(so, "host_disc" + sfx).argtypes = [ctypes.c_int] * 6 + [P] * 8
+        getattr(so, "host_resim" + sfx).argtypes = \
+            [ctypes.c_int] * 7 + [P] * 5
+    P = ctypes.POINTER(ctypes.c_double)
+    so.host_flow_jac.argtypes = [ctypes.c_int] + [P] * 5
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def inputs(foh, seed=0):
+    """Two RocketQuat scenarios (the second with a 2% heavier start),
+    nondimensional, their initial guesses perturbed by a seeded numpy RNG:
+    X, U, t, par in float64."""
+    rng = np.random.default_rng(seed)
+    p = batch_params(RocketQuat.default_params(F64), 2)
+    p = p.replace(x_init=p.x_init * torch.tensor([[1.0], [1.02]], dtype=F64))
+    p = RocketQuat.nondimensionalize(p)
+    td = RocketQuat.init_trajectory(p, K, foh)
+    X = td.X * (1 + 1e-2 * torch.tensor(rng.standard_normal(td.X.shape)))
+    U = td.U * (1 + 1e-2 * torch.tensor(rng.standard_normal(td.U.shape)))
+    return X, U.contiguous(), td.t, RocketQuat.param_vector(p)
+
+
+@functools.lru_cache(maxsize=None)
+def plain(foh, method):
+    """The float64 plain versions: (A, B, C, z) and J."""
+    X, U, t, par = inputs(foh)
+    args = (RocketQuat, X, U, t, par, SUBSTEPS, method, foh)
+    return disc_mono._disc_plain(*args), disc_mono._resim_plain(*args)
+
+
+def host_run(lib, ins, foh, method, nthreads=32):
+    X, U, t, par = [np.ascontiguousarray(a.numpy()) for a in ins]
+    B, K_, n = X.shape
+    m = U.shape[-1]
+    f32 = X.dtype == np.float32
+    sfx = "_f32" if f32 else ""
+    P = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
+    outs = [np.full(s, np.nan, X.dtype) for s in
+            ((B, K_ - 1, n, n), (B, K_ - 1, n, m), (B, K_ - 1, n, m),
+             (B, K_ - 1, n), (B,))]
+    ptr = [a.ctypes.data_as(P) for a in (X, U, t, par)]
+    mid = disc_mono._METHODS.index(method)
+    dims = (B, K_, U.shape[1], SUBSTEPS)
+    assert getattr(lib, "host_disc" + sfx)(
+        mid, int(foh), *dims, *ptr, *[a.ctypes.data_as(P)
+                                      for a in outs[:4]]) == 0
+    assert getattr(lib, "host_resim" + sfx)(
+        mid, int(foh), nthreads, *dims, *ptr,
+        outs[4].ctypes.data_as(P)) == 0
+    outs = [torch.from_numpy(a) for a in outs]
+    return (outs[0], outs[1], outs[2] if foh else None, outs[3]), outs[4]
+
+
+def rel(a, b):
+    """max |a - b| relative to 1 + max |b|."""
+    return float((a.double() - b).abs().max() / (1 + b.abs().max()))
+
+
+def distances(got, ref):
+    """Per output: A, B, C, z, J."""
+    (disc_g, J_g), (disc_r, J_r) = got, ref
+    names = ("A", "B", "C", "z")
+    out = {nm: rel(g, r) for nm, g, r in zip(names, disc_g, disc_r)
+           if r is not None}
+    out["J"] = rel(J_g, J_r)
+    return out
+
+
+@pytest.mark.parametrize("foh,method", VARIANTS, ids=VARIANT_IDS)
+def test_kernel_body_matches_plain(host_lib, foh, method):
+    """Float64: the kernel body and the plain version differ only in the
+    order of the matrix-vector sums, so they agree to 1e-10 relative."""
+    got = host_run(host_lib, inputs(foh), foh, method)
+    for g in got[0]:
+        assert g is None or bool(torch.isfinite(g).all())
+    d = distances(got, plain(foh, method))
+    assert max(d.values()) <= 1e-10, d
+
+
+# The main path's dtype: the kernel body in float32 must land within this
+# of the float64 plain result (per output, max error relative to
+# 1 + max |float64 value|), about four times the largest reading over the
+# four variants, 4.0e-7 (J, FOH rk4; the plain version in float32 reads
+# the same; see test_kernel_body_float32_near_float64 under -s).
+F32_CEILING = 1.6e-6
+
+
+@pytest.mark.parametrize("foh,method", VARIANTS, ids=VARIANT_IDS)
+def test_kernel_body_float32_near_float64(host_lib, foh, method):
+    ins32 = [a.float() for a in inputs(foh)]
+    got = host_run(host_lib, ins32, foh, method, nthreads=8)
+    d = distances(got, plain(foh, method))
+    args = (RocketQuat, *ins32, SUBSTEPS, method, foh)
+    d_plain = distances((disc_mono._disc_plain(*args),
+                         disc_mono._resim_plain(*args)), plain(foh, method))
+    print(f"float32 distance from float64 plain, kernel body / plain: "
+          + ", ".join(f"{k} {d[k]:.2e} / {d_plain[k]:.2e}" for k in d))
+    assert max(d.values()) <= F32_CEILING, d
+
+
+def test_dual_jacobian_matches_torch_func(host_lib):
+    """f and [A | B] from the dual numbers against torch.func's jacfwd of
+    the model at random points."""
+    rng = np.random.default_rng(3)
+    X, U, _, par = inputs(True)
+    N = X.shape[0] * K
+    x = X.reshape(-1, 14)[:N] * (1 + 0.2 * torch.tensor(
+        rng.standard_normal((N, 14))))
+    u = U.reshape(-1, 4)[:N] * (1 + 0.5 * torch.tensor(
+        rng.standard_normal((N, 4))))
+    parN = par[:1].expand(N, -1).contiguous()
+    f_ref = RocketQuat.flow_map(x, u, parN)
+    A_ref, B_ref = vmap(jacfwd(RocketQuat.flow_map, argnums=(0, 1)))(
+        x, u, parN)
+    J_ref = torch.cat([A_ref, B_ref], -1)
+    f = np.zeros((N, 14))
+    J = np.zeros((N, 14, 18))
+    P = ctypes.POINTER(ctypes.c_double)
+    host_lib.host_flow_jac(N, *(np.ascontiguousarray(a.numpy()).ctypes
+                                .data_as(P) for a in (x, u, parN)),
+                           f.ctypes.data_as(P), J.ctypes.data_as(P))
+    np.testing.assert_allclose(f, f_ref.numpy(), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(J, J_ref.numpy(), rtol=1e-12, atol=1e-14)
+
+
+def test_routing():
+    """CPU tensors take the plain versions; a model without a CUDA flow map
+    has no kernel."""
+    X, U, t, par = inputs(True)
+    td = TrajectoryData(X=X, U=U, t=t)
+    dd = disc_mono.multiple_shooting_fused(RocketQuat, par, td,
+                                           substeps=SUBSTEPS)
+    assert torch.equal(dd.A, plain(True, "dopri5")[0][0])
+    assert dd.s is None
+    J = disc_mono.nonlinear_defect_cost_fused(RocketQuat, par, td,
+                                              substeps=SUBSTEPS)
+    assert torch.equal(J, plain(True, "dopri5")[1])
+
+    class NoKernel:
+        pass
+    with pytest.raises(NotImplementedError):
+        disc_mono._cuda_model(NoKernel)
+
+
+def test_fused_scvx_matches_unfused():
+    """solve_scvx with fuse_dynamics=True against False, both on the CPU
+    in float64: the same math up to reassociation, held as the reference
+    holds its own pair (tests/test_disc_mono.py)."""
+    cfg = SCvxConfig(K=6, max_iterations=30, solve_budget=3,
+                     change_threshold=1e-3, nondimensionalize=True,
+                     substeps=3, sim_substeps=4,
+                     solver=IPMSettings(iters=10, eps_reg=1e-4,
+                                        eps_feas=1e-4, refine_steps=0,
+                                        monolith=True))
+    p = batch_params(RocketQuat.default_params(F64), 2)
+    p = p.replace(x_init=p.x_init * torch.tensor([[1.0], [1.02]], dtype=F64))
+    ref = solve_scvx(RocketQuat, p, cfg, device="cpu")
+    got = solve_scvx(RocketQuat, p,
+                     dataclasses.replace(cfg, fuse_dynamics=True),
+                     device="cpu")
+    np.testing.assert_allclose(got.td.U.numpy(), ref.td.U.numpy(),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.nonlinear_cost.numpy(),
+                               ref.nonlinear_cost.numpy(), rtol=1e-4,
+                               atol=1e-7)
+
+
+# The card's kernels in float32 against the float64 plain version at
+# these shapes; chip_smoke.py holds the main path's shapes to its own
+# ceilings.
+CARD_F32_CEILING = F32_CEILING
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_match_plain_on_card(dtype):
+    """float64: kernel and plain version agree to 1e-10; float32: the
+    kernel lands within CARD_F32_CEILING of the float64 plain result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from scpp_tpu_torch import kernels
+    for foh, method in VARIANTS:
+        ins = [a.to("cuda") for a in inputs(foh)]
+        args = (RocketQuat, *ins, SUBSTEPS, method, foh)
+        ref = (disc_mono._disc_plain(*args), disc_mono._resim_plain(*args))
+        before = dict(kernels.launches)
+        got_args = (RocketQuat, *[a.to(dtype) for a in ins], SUBSTEPS,
+                    method, foh)
+        got = (disc_mono._disc_cuda(*got_args),
+               disc_mono._resim_cuda(*got_args))
+        torch.cuda.synchronize()
+        assert kernels.launches["disc_mono"] == before["disc_mono"] + 1
+        assert kernels.launches["resim_mono"] == before["resim_mono"] + 1
+        d = distances(got, ref)
+        print(f"{dtype} {'foh' if foh else 'zoh'} {method}: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in d.items()))
+        limit = 1e-10 if dtype == F64 else CARD_F32_CEILING
+        assert max(d.values()) <= limit, d

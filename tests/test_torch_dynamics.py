@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: integrators, the RocketQuat model and
-its Jacobians, multiple shooting, simulation and the defect costs.
+its Jacobians, multiple shooting (unfused, and the fused path's plain
+versions), simulation and the defect costs.
 
 Inputs come from a seeded numpy RNG and go through both packages in
 float64 on the CPU; agreement is to ~1e-10 relative (the two differ only
@@ -27,6 +28,7 @@ from scpp_tpu_torch.algos.common import (interval_resimulation,
                                          nonlinear_defect_cost)
 from scpp_tpu_torch.models import RocketQuat
 from scpp_tpu_torch.models.base import flow_with_jacobians
+from scpp_tpu_torch.ops import disc_mono
 from scpp_tpu_torch.ops.discretization import multiple_shooting
 from scpp_tpu_torch.ops.integrators import integrate_fixed
 from scpp_tpu_torch.ops.simulation import simulate
@@ -34,6 +36,10 @@ from scpp_tpu_torch.parallel.scenarios import disperse_initial_state
 
 RTOL = 1e-10
 F64 = torch.float64
+# the RK steps of every reference multiple shooting below, and its
+# resimulation, jitted once: each distinct compile costs seconds
+SHOOT_SUBSTEPS = 4
+j_resim = jax.jit(j_nonlinear_cost, static_argnums=(0, 3, 4))
 
 
 def rel_err(a, b):
@@ -105,15 +111,67 @@ def test_flow_map_and_jacobians_match():
     assert rel_err(B_t, B_j) < RTOL
 
 
-def test_multiple_shooting_matches():
+@pytest.fixture(scope="module")
+def foh_shooting():
+    """A perturbed K=5 FOH trajectory and the reference's discretization
+    of it (one JAX compile, shared by every test of this module)."""
     p = jax_params()
     par = JRocketQuat.param_vector(p)
     td = perturbed_trajectory(p, 5, True, 2)
-    dd_j = j_shooting(JRocketQuat, par, td, substeps=6, variable_time=False)
+    return par, td, j_shooting(JRocketQuat, par, td, substeps=SHOOT_SUBSTEPS,
+                               variable_time=False)
+
+
+def test_multiple_shooting_matches(foh_shooting):
+    par, td, dd_j = foh_shooting
     dd_t = multiple_shooting(RocketQuat, torch.tensor(np.asarray(par))[None],
-                             convert.trajectory(td), substeps=6)
+                             convert.trajectory(td), substeps=SHOOT_SUBSTEPS)
     for name in ("A", "B", "C", "z"):
         assert rel_err(getattr(dd_t, name)[0], getattr(dd_j, name)) < RTOL
+
+
+@pytest.mark.parametrize("foh", [True, False], ids=["foh-dopri5", "zoh-rk4"])
+def test_fused_plain_discretization_matches(foh_shooting, foh):
+    """The fused discretization's plain version (normalized time) against
+    the reference's unfused multiple shooting (physical time), the
+    reference its own fused kernel is held to (tests/test_disc_mono.py)."""
+    if foh:
+        par, td, dd_j = foh_shooting
+        method = "dopri5"
+    else:
+        p = jax_params()
+        par = JRocketQuat.param_vector(p)
+        td = perturbed_trajectory(p, 5, False, 8)
+        method = "rk4"
+        dd_j = j_shooting(JRocketQuat, par, td, substeps=SHOOT_SUBSTEPS,
+                          method=method, variable_time=False)
+    tt = convert.trajectory(td)
+    got = disc_mono._disc_plain(RocketQuat, tt.X, tt.U, tt.t,
+                                torch.tensor(np.asarray(par))[None],
+                                SHOOT_SUBSTEPS, method, foh)
+    assert (got[2] is None) == (not foh)
+    for name, g in zip(("A", "B", "C", "z"), got):
+        if g is not None:
+            np.testing.assert_allclose(
+                g[0].numpy(), np.asarray(getattr(dd_j, name)), rtol=1e-10,
+                atol=1e-12, err_msg=name)
+
+
+def test_fused_plain_resim_matches():
+    """The fused resim's plain version on two scenarios (the second
+    trajectory scaled by 1 + 1e-3) against the reference's
+    nonlinear_defect_cost of each (tests/test_disc_mono.py)."""
+    p = jax_params()
+    par = JRocketQuat.param_vector(p)
+    td = perturbed_trajectory(p, 5, True, 4)
+    tds = [td, jax.tree_util.tree_map(lambda a: a * (1.0 + 1e-3), td)]
+    ref = [float(j_resim(JRocketQuat, par, t, 8, "dopri5")) for t in tds]
+    tt = [convert.trajectory(t) for t in tds]
+    par_t = torch.tensor(np.asarray(par))[None].expand(2, -1)
+    got = disc_mono._resim_plain(
+        RocketQuat, *(torch.cat([getattr(t, f) for t in tt])
+                      for f in ("X", "U", "t")), par_t, 8, "dopri5", True)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9)
 
 
 @pytest.mark.parametrize("foh", [True, False], ids=["foh", "zoh"])
@@ -158,12 +216,13 @@ def test_defect_costs_match():
     par = JRocketQuat.param_vector(p)
     td0 = perturbed_trajectory(p, 5, True, 3)
     td1 = perturbed_trajectory(p, 5, True, 4)
-    dd = j_shooting(JRocketQuat, par, td0, substeps=6, variable_time=False)
-    J_j = jax.jit(lambda td: j_nonlinear_cost(JRocketQuat, par, td, 8))(td1)
+    dd = j_shooting(JRocketQuat, par, td0, substeps=SHOOT_SUBSTEPS,
+                    variable_time=False)
+    J_j = j_resim(JRocketQuat, par, td1, 8, "dopri5")
     L_j = jax.jit(j_linear_cost)(td1, dd)
     par_t = torch.tensor(np.asarray(par))[None]
     dd_t = multiple_shooting(RocketQuat, par_t, convert.trajectory(td0),
-                             substeps=6)
+                             substeps=SHOOT_SUBSTEPS)
     td1_t = convert.trajectory(td1)
     assert rel_err(nonlinear_defect_cost(RocketQuat, par_t, td1_t, 8)[0],
                    J_j) < RTOL

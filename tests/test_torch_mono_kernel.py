@@ -3,10 +3,10 @@
 
 ``scpp_tpu_torch/csrc/mono_ipm_body.cuh`` holds everything the kernel
 computes; ``mono_ipm.cu`` only launches it. On the CPU the header is
-compiled with g++ under a small shim (``__device__`` and friends empty,
-each CUDA thread a ``std::thread`` with its own ``threadIdx``,
-``__syncthreads`` a ``std::barrier``) and run block by block, so the
-kernel's arithmetic, its block-strided loops and its barriers are
+compiled with g++ under the shim ``csrc/host_shim.h`` (``__device__``
+and friends empty, each CUDA thread a ``std::thread`` with its own
+``threadIdx``, ``__syncthreads`` a ``std::barrier``) and run block by
+block, so the kernel's arithmetic, its block-strided loops and its barriers are
 checked in float64. The ``cuda`` test launches the real kernel and skips
 without a GPU. This module imports no JAX, so it also runs on a machine
 that has only the port's dependencies:
@@ -31,21 +31,6 @@ from scpp_tpu_torch.solver.ipm import IPMSettings
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "scpp_tpu_torch", "csrc")
-
-SHIM = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <math.h>
-#define __device__
-#define __host__
-#define __forceinline__ inline
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-extern thread_local Dim3 threadIdx;
-extern Dim3 blockDim;
-extern std::barrier<>* g_barrier;
-inline void __syncthreads() { g_barrier->arrive_and_wait(); }
-"""
 
 # Built twice in parallel, once per element type (HOST_F32 or not), and
 # linked into one library: one instantiation per compiler halves the build.
@@ -151,14 +136,13 @@ def host_lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
     assert cxx, "a C++20 compiler is needed to build the kernel body"
     d = tmp_path_factory.mktemp("mono_host")
-    (d / "shim.h").write_text(SHIM)
     (d / "harness.cpp").write_text(HARNESS)
     lib = d / "libmono_host.so"
     objs = [d / f"harness{i}.o" for i in range(2)]
     builds = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-c", "-fPIC", "-pthread", *flag,
-         "-include", str(d / "shim.h"), "-I", CSRC, "-o", str(o),
-         str(d / "harness.cpp")], stderr=subprocess.PIPE)
+         "-include", os.path.join(CSRC, "host_shim.h"), "-I", CSRC,
+         "-o", str(o), str(d / "harness.cpp")], stderr=subprocess.PIPE)
         for o, flag in zip(objs, ([], ["-DHOST_F32"]))]
     for b in builds:
         _, err = b.communicate(timeout=120)

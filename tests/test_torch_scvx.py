@@ -315,7 +315,7 @@ def test_history_back_fills_past_the_last_step():
 
 @pytest.mark.parametrize("change", [{"backend": "dense"},
                                     {"l1_split": False},
-                                    {"fuse_dynamics": True}])
+                                    {"solver": IPMSettings(monolith=False)}])
 def test_unported_configurations_raise(change):
     p = RocketQuat.default_params(torch.float64)
     with pytest.raises(NotImplementedError):
