@@ -4,15 +4,17 @@
 
 Phases, one line each: the card; the build of every kernel from
 ``scpp_tpu_torch/csrc``; each kernel held against its plain PyTorch
-version at the main path's shapes; the main path itself (64 dispersed
-RocketQuat K=30 SCvx solves at the flagship configuration, through
-``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count of its
-kernel; the same solves on the fused dynamics path
+version at the main path's shapes; the main path itself (bench.py's 64
+dispersed RocketQuat K=30 SCvx solves at the flagship configuration,
+through ``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count
+of its kernel; the same solves on the fused dynamics path
 (``fuse_dynamics=True``: discretize and resim as one kernel launch each)
-with the launch counts of its three kernels. Then one JSON line of
-kernel measurements, the card's name and power limit, and the result
-line. Any failure exits non-zero before the result line; without a CUDA
-device it exits non-zero at once.
+with the launch counts of its three kernels; the same solves on the
+staged path (``fuse_dynamics=True`` and the unfused staged IPM,
+``monolith=False``: every KKT solve one ``cr_solve`` launch). Then one
+JSON line of kernel measurements, the card's name and power limit, and
+the result line. Any failure exits non-zero before the result line;
+without a CUDA device it exits non-zero at once.
 """
 
 import contextlib
@@ -39,6 +41,16 @@ F32_CEILING = 1e-2                  # see "kernel vs plain" in main()
 # the rounding of the 406-term float32 sum of the defect)
 DISC_F32_CEILING = 1.1e-6
 RESIM_F32_CEILING = 1.2e-5
+# float32 ceiling of cr_solve on the identity-scaled KKT systems of the
+# step-0 subproblems (see check_cr_kernel), about four times the reading
+# on the card: 1.37e-4 for the kernel and the plain version alike (the
+# rounding of a float32 factor of systems whose solutions reach 3.5e4)
+CR_F32_CEILING = 5.5e-4
+# the same at the NT scaling of a mid-solve iterate (the float64 cold
+# solve stopped after half its IPM iterations), where the staged path
+# still solves in float32: about four times the reading on the card,
+# 1.83e-4 for the kernel and the plain version alike
+CR_MID_F32_CEILING = 7.5e-4
 
 
 def card():
@@ -60,11 +72,13 @@ def flagship_config():
 
 
 def dispersed_params(dtype):
+    """bench.py's 64 scenarios: the stock params with its dispersed
+    initial states (stored in the port, see bench_initial_states)."""
     from scpp_tpu_torch.models import RocketQuat
-    from scpp_tpu_torch.parallel.scenarios import disperse_initial_state
-    gen = torch.Generator().manual_seed(0)
-    return disperse_initial_state(RocketQuat, RocketQuat.default_params(dtype),
-                                  gen, B, 2.0)
+    from scpp_tpu_torch.models.base import batch_params
+    from scpp_tpu_torch.parallel.scenarios import bench_initial_states
+    pb = batch_params(RocketQuat.default_params(dtype), B)
+    return pb.replace(x_init=bench_initial_states(dtype))
 
 
 def flagship_programs(cfg, dtype):
@@ -179,26 +193,17 @@ def resim_work(X, U, substeps, method):
 
 
 def unported_work():
-    """Bytes and operations of the two TPU kernels still to port, at the
-    shapes where they would run for the main path's programs (B=64, K=30,
-    w=32, me=16, so Wp=48; SOC sizes (5, 3, 3, 4, 4, 3) per stage), one
-    call each, float32:
-    - cr_pallas._cr_fused_kernel: one single-RHS solve from a cyclic
-      reduction factor; each odd block of each level (K-1 in all) holds
-      three Wp x Wp blocks (L^{-1}, R, Q) read once, plus the root's
-      L^{-1}, b and x; 3 row-vector products per odd block down, 3 up,
-      2 at the root.
-    - soc_pallas._soc_kernel: the projection of every cone of the batch
-      onto the SOC, each cone read and written once, about 3q + 4
-      operations a cone (the norm, the three-case select, the scaling)."""
-    Wp, esz, socs = 48, 4, (5, 3, 3, 4, 4, 3)
-    odd = K - 1
-    cr = (esz * B * (odd * 3 * Wp * Wp + Wp * Wp + 2 * K * Wp),
-          B * (6 * odd + 2) * 2 * Wp * Wp)
+    """Bytes and operations of the TPU kernel still to port that would
+    run on the main path's programs (B=64, K=30; SOC sizes (5, 3, 3, 4,
+    4, 3) per stage), one call, float32: soc_pallas._soc_kernel, the
+    projection of every cone of the batch onto the SOC, each cone read
+    and written once, about 3q + 4 operations a cone (the norm, the
+    three-case select, the scaling)."""
+    esz, socs = 4, (5, 3, 3, 4, 4, 3)
     n_cones = B * K
     soc = (esz * 2 * n_cones * sum(socs),
            n_cones * sum(3 * q + 4 for q in socs))
-    return {"cr_fused (kernel 4)": cr, "soc_project (kernel 5)": soc}
+    return {"soc_project (kernel 5)": soc}
 
 
 def bound(nbytes, flops):
@@ -309,10 +314,116 @@ def check_fused_kernels(tag, cases):
     return ok, measures
 
 
-def run_path(tag, label, cfg, params, kernel_names):
+def dense_kkt(D, O):
+    """The assembled (B, K Wp, K Wp) block-tridiagonal KKT matrices."""
+    Bn, Kn, W = D.shape[0], D.shape[1], D.shape[-1]
+    M = D.new_zeros((Bn, Kn * W, Kn * W))
+    for k in range(Kn):
+        M[:, k * W:(k + 1) * W, k * W:(k + 1) * W] = D[:, k]
+        if k + 1 < Kn:
+            M[:, (k + 1) * W:(k + 2) * W, k * W:(k + 1) * W] = O[:, k]
+            M[:, k * W:(k + 1) * W, (k + 1) * W:(k + 2) * W] = \
+                O[:, k].transpose(-1, -2)
+    return M
+
+
+def check_cr_kernel(tag, prog64, settings):
+    """cr_solve against its plain version (staged_kkt.cr_solve) on the
+    KKT systems of the main path's step-0 subproblems (B=64, K=30,
+    Wp=48, p=32), through the wrapper the solver calls
+    (cr_fused.cr_solve_single), at three scalings: the cold start's
+    identity scaling, the NT scaling of the iterate that the float64 cold
+    solve of the unfused IPM reaches after half its iterations, and that
+    of the iterate it returns; right-hand sides from a seeded generator.
+
+    The gate is float64: kernel and plain version differ only in the
+    order of the 48-term sums, so they must agree to 1e-9 relative to
+    1 + max |plain|. In float32, the main path's dtype, the kernel on a
+    float32 factor must land within a fixed ceiling of the float64 plain
+    solution: CR_F32_CEILING at the identity scaling, CR_MID_F32_CEILING
+    at the mid-solve iterate. At the late iterate the KKT condition
+    number has grown like 1/mu, and a float32 factor there is far from
+    the float64 solution for kernel and plain version alike (the solver
+    refines against the exact operator), so there float32 is only
+    printed. Returns (ok, measures)."""
+    from scpp_tpu_torch.solver import cr_fused, ipm_staged
+    from scpp_tpu_torch.solver.staged_kkt import cr_factor, cr_solve
+    ipm = ipm_staged._StagedIPM(prog64, settings)
+    ipm.solve()
+    half_iters = settings.iters // 2
+    half = ipm_staged._StagedIPM(prog64, settings.replace(iters=half_iters))
+    half.solve()
+    mid = f"mid-solve iterate ({half_iters} iterations)"
+    reps = {"identity scaling": ipm.cones.identity_rep(**ipm.f),
+            mid: half.cones.nt_scaling(half.final[2], half.final[3])[0],
+            "late iterate": ipm.cones.nt_scaling(ipm.final[2],
+                                                 ipm.final[3])[0]}
+    ceilings = {"identity scaling": CR_F32_CEILING, mid: CR_MID_F32_CEILING,
+                "late iterate": None}
+    gen = torch.Generator().manual_seed(0)
+    w = prog64.w
+
+    def dist(a, b):
+        return float((a.double() - b).abs().max() / (1 + b.abs().max()))
+
+    ok, out = True, {}
+    for case, rep in reps.items():
+        D, O = ipm.kkt_blocks(rep)
+        b64 = torch.randn(D.shape[:2] + D.shape[-1:], generator=gen,
+                          dtype=torch.float64).cuda()
+        p64 = cr_fused.cr_pack(cr_factor(D, O, w))
+        p32 = cr_fused.cr_pack(cr_factor(D.float(), O.float(), w))
+        b32 = b64.float()
+        plain64 = cr_solve(cr_fused.cr_unpack(p64), b64)
+        k64 = cr_fused.cr_solve_single(p64, b64)
+        k32 = cr_fused.cr_solve_single(p32, b32)
+        plain32 = cr_solve(cr_fused.cr_unpack(p32), b32)
+        torch.cuda.synchronize()
+        d64, dk, dp = dist(k64, plain64), dist(k32, plain64), \
+            dist(plain32, plain64)
+        finite = bool(torch.isfinite(k32).all())
+        ceiling = ceilings[case]
+        good = d64 <= 1e-9 and (ceiling is None or (finite and dk <= ceiling))
+        print(f"  cr_solve {case}: float64 kernel vs plain {d64:.2e} "
+              f"(tolerance 1e-9); float32 vs float64 plain, kernel / plain: "
+              f"{dk:.2e} / {dp:.2e}"
+              + ("; printed only" if ceiling is None else
+                 f" (kernel ceiling {ceiling:g})")
+              + f" -> {'ok' if good else 'FAIL'}")
+        ok &= good
+        if case == "identity scaling":
+            out = dict(p32=p32, b32=b32, D=D.float(), O=O.float(),
+                       max_abs_err=float((k32 - plain32).abs().max()))
+    p32, b32 = out["p32"], out["b32"]
+    ms = cuda_ms(lambda: cr_fused.cr_solve_single(p32, b32), 50)
+    plain_ms = cuda_ms(lambda: cr_solve(cr_fused.cr_unpack(p32), b32), 10)
+    # library: one batched LU solve against a precomputed dense LU of the
+    # same 64 assembled (K Wp) x (K Wp) systems (the factor untimed, as
+    # the CR factor is)
+    LU, piv = torch.linalg.lu_factor(dense_kkt(out["D"], out["O"]))
+    bd = b32.reshape(B, -1, 1)
+    lib_x = torch.linalg.lu_solve(LU, piv, bd).reshape(b32.shape)
+    library_ms = cuda_ms(lambda: torch.linalg.lu_solve(LU, piv, bd), 10)
+    k32 = cr_fused.cr_solve_single(p32, b32)
+    torch.cuda.synchronize()
+    Wp = b32.shape[-1]
+    nbytes, flops = cr_fused.cr_work(B, K, Wp, 4)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"kernel time {tag}: cr_solve float32 {ms:.4f} ms per launch "
+          f"(B={B} K={K} Wp={Wp}, one right-hand side), plain "
+          f"{plain_ms:.3f} ms, library (batched lu_solve of the assembled "
+          f"{K * Wp}x{K * Wp} systems) {library_ms:.3f} ms (its distance "
+          f"from the kernel's x {dist(lib_x, k32.double()):.2e}); bound "
+          f"{b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e6:.1f} MFLOP)")
+    return ok, dict(max_abs_err=out["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def run_path(tag, label, cfg, params):
     """First call, then a warm call with the CUDA-event phase split and
     the launch counts; gates the warm call's results. Returns (ok,
-    launches)."""
+    launches, raw KKT solves, SCvx steps)."""
     from scpp_tpu_torch import kernels
     from scpp_tpu_torch.algos.scvx import solve_scvx
     from scpp_tpu_torch.models import RocketQuat
@@ -337,7 +448,8 @@ def run_path(tag, label, cfg, params, kernel_names):
     res = solve_scvx(RocketQuat, params, cfg, device="cuda", phase=phase)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: kernels.launches[n] for n in kernel_names}
+    launches = dict(kernels.launches)
+    raw = kernels.solver_calls["raw_kkt_solve"]
 
     conv = int(res.converged.sum())
     J_end = res.nonlinear_cost[:, -1]
@@ -349,7 +461,8 @@ def run_path(tag, label, cfg, params, kernel_names):
           f"{float(J_end.max()):.4f} mean {float(J_end.mean()):.4f}; "
           f"SCvx steps {n_steps} (per scenario "
           f"{int(res.steps.min())}-{n_steps}); launches "
-          + ", ".join(f"{n} {c}" for n, c in launches.items()))
+          + ", ".join(f"{n} {c}" for n, c in launches.items())
+          + f"; raw KKT solves {raw}")
     print(f"{label} {tag}: warm solve {wall:.3f} s wall (first "
           f"{first_s:.3f} s) -> {conv / wall:.3f} converged solves/s; "
           f"split (CUDA events, ms over {n_steps} steps): "
@@ -362,12 +475,31 @@ def run_path(tag, label, cfg, params, kernel_names):
         failed.append("J_end max outside the basin (0.06)")
     if not bool(torch.isfinite(res.td.X).all()):
         failed.append("non-finite trajectories")
-    for name, n in launches.items():
-        if n < max(n_steps, 1):
-            failed.append(f"{name}: {n} launches in {n_steps} SCvx steps")
+    return failed, launches, raw, n_steps
+
+
+def gate_launches(label, failed, launches, n_steps, each_step, never,
+                  raw=None):
+    """Launch gates of one path: the kernels of ``each_step`` at least
+    once per SCvx step, those of ``never`` not at all; with ``raw``,
+    cr_solve exactly once per raw KKT solve and at least twice a step."""
+    for name in each_step:
+        if launches[name] < max(n_steps, 1):
+            failed.append(f"{name}: {launches[name]} launches in {n_steps} "
+                          f"SCvx steps")
+    for name in never:
+        if launches[name]:
+            failed.append(f"{name}: {launches[name]} launches, expected 0")
+    if raw is not None:
+        if launches["cr_solve"] != raw:
+            failed.append(f"cr_solve: {launches['cr_solve']} launches for "
+                          f"{raw} raw KKT solves")
+        if launches["cr_solve"] < 2 * max(n_steps, 1):
+            failed.append(f"cr_solve: {launches['cr_solve']} launches in "
+                          f"{n_steps} SCvx steps")
     if failed:
         print(f"{label}: FAILED: " + "; ".join(failed), file=sys.stderr)
-    return not failed, launches
+    return not failed
 
 
 def main():
@@ -464,38 +596,61 @@ def main():
         "step 0": [td64.X, td64.U, td64.t, par64],
         "step 1": [td1.X, td1.U, td1.t, par64]})
     measures.update(fused)
+    print(f"kernel vs plain {tag}: cr_solve B={B} K={K} Wp="
+          f"{prog64.w + prog64.me} p={prog64.w}, the KKT systems of the "
+          f"step-0 subproblems of the main path")
+    staged = dataclasses.replace(cfg, fuse_dynamics=True,
+                                 solver=cfg.solver.replace(monolith=False))
+    ok_cr, measures["cr_solve"] = check_cr_kernel(tag, prog64, staged.solver)
     for name, (nbytes, flops) in unported_work().items():
         b_ms, b_by = bound(nbytes, flops)
         print(f"bound {tag}: {name}, not ported, one call at the main "
               f"path's shapes: {b_ms:.6f} ms by {b_by} ({nbytes / 1e6:.3f} "
               f"MB, {flops / 1e6:.3f} MFLOP)")
-    if not (ok_all and ok_fused):
+    if not (ok_all and ok_fused and ok_cr):
         print("kernel vs plain: FAILED", file=sys.stderr)
         return 1
 
-    # ---- the main path, then the fused dynamics path ----
+    # ---- the main path, the fused dynamics path, the staged path ----
+    # Each path's launch counts are set to 0 just before its warm run and
+    # read just after; a kernel of another path must not launch.
     params = dispersed_params(torch.float32)
-    ok_main, launches = run_path(tag, "main path", cfg, params,
-                                 ["mono_ipm"])
-    ok_fused, fused_launches = run_path(
+    failed, launches, _, steps = run_path(tag, "main path", cfg, params)
+    ok_main = gate_launches("main path", failed, launches, steps,
+                            ["mono_ipm"], ["cr_solve", "disc_mono",
+                                           "resim_mono"])
+    failed, fused_launches, _, steps = run_path(
         tag, "fused path", dataclasses.replace(cfg, fuse_dynamics=True),
-        params, ["disc_mono", "resim_mono", "mono_ipm"])
-    if not (ok_main and ok_fused):
+        params)
+    ok_fused = gate_launches("fused path", failed, fused_launches, steps,
+                             ["disc_mono", "resim_mono", "mono_ipm"],
+                             ["cr_solve"])
+    failed, staged_launches, raw, steps = run_path(tag, "staged path",
+                                                   staged, params)
+    ok_staged = gate_launches("staged path", failed, staged_launches, steps,
+                              ["disc_mono", "resim_mono"], ["mono_ipm"],
+                              raw=raw)
+    if not (ok_main and ok_fused and ok_staged):
         return 1
     launches.update({n: fused_launches[n] for n in ("disc_mono",
                                                     "resim_mono")})
+    launches["cr_solve"] = staged_launches["cr_solve"]
 
     sources = {"mono_ipm": ("scpp_tpu_torch/csrc/mono_ipm.cu",
                             "scpp_tpu/solver/ipm_mono.py:385"),
                "disc_mono": ("scpp_tpu_torch/csrc/disc_mono.cu",
                              "scpp_tpu/ops/disc_mono.py:157"),
                "resim_mono": ("scpp_tpu_torch/csrc/disc_mono.cu",
-                              "scpp_tpu/ops/disc_mono.py:320")}
+                              "scpp_tpu/ops/disc_mono.py:320"),
+               "cr_solve": ("scpp_tpu_torch/csrc/cr_solve.cu",
+                            "scpp_tpu/solver/cr_pallas.py:86")}
     # library_ms: no single PyTorch call solves an SOCP or integrates a
-    # variational or nonlinear ODE
+    # variational or nonlinear ODE; cr_solve's is a batched lu_solve
+    for name in ("mono_ipm", "disc_mono", "resim_mono"):
+        measures[name]["library_ms"] = None
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
-        launches=launches[name], **measures[name], library_ms=None)
+        launches=launches[name], **measures[name])
         for name, (src, rep) in sources.items()]}))
     print(dev)
     print(json.dumps({"ok": True, "device": {

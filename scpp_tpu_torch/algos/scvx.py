@@ -1,13 +1,13 @@
 """SCvx: successive convexification with a hard trust region and a ratio
 test, batch-first (counterpart of ``scpp_tpu/algos/scvx.py``).
 
-One step = discretize -> build the staged subproblems -> monolithic conic
-solve -> linear and nonlinear defect costs -> masked accept/reject, for
-every scenario of the batch at once. Scenarios that are done are frozen
-per scenario, and the loop exits once every scenario is done or the
-solve budget is spent; per-step history is recorded per scenario and
-back-filled past each scenario's last step, as the reference's batched
-while-loop does.
+One step = discretize -> build the staged subproblems -> staged conic
+solve (monolithic or unfused, as ``cfg.solver`` routes it) -> linear and
+nonlinear defect costs -> masked accept/reject, for every scenario of
+the batch at once. Scenarios that are done are frozen per scenario, and
+the loop exits once every scenario is done or the solve budget is
+spent; per-step history is recorded per scenario and back-filled past
+each scenario's last step, as the reference's batched while-loop does.
 
 Reference quirks kept for numeric parity (SCvxAlgorithm.cpp): the first
 subproblem solve is accepted unconditionally; ``last_nonlinear_cost`` is
@@ -32,7 +32,8 @@ from scpp_tpu_torch.models.base import map_tensors
 from scpp_tpu_torch.ops.disc_mono import (multiple_shooting_fused,
                                           nonlinear_defect_cost_fused)
 from scpp_tpu_torch.ops.discretization import multiple_shooting
-from scpp_tpu_torch.solver.ipm_staged import solve_staged_ipm
+from scpp_tpu_torch.solver.ipm_staged import (check_unfused_settings,
+                                             solve_staged_ipm)
 from scpp_tpu_torch.trajectory import TrajectoryData
 
 __all__ = ["SCvxResult", "solve_scvx"]
@@ -83,8 +84,7 @@ def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
         raise NotImplementedError("only backend='staged' with l1_split is "
                                   "ported")
     if not cfg.solver.monolith:
-        raise NotImplementedError("only the monolithic staged IPM is ported "
-                                  "(IPMSettings(monolith=True))")
+        check_unfused_settings(cfg.solver)
     _full_fp32(device)
     params = map_tensors(params, lambda t: t.to(device))
     if cfg.nondimensionalize:

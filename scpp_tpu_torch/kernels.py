@@ -8,7 +8,10 @@ of the sources, so an edited source is rebuilt. Nothing here runs at
 import time.
 
 ``launches`` counts the launches of each kernel; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. ``solver_calls`` counts
+what the solvers ask for, on any device: ``raw_kkt_solve`` is one
+single-right-hand-side KKT solve of the unfused staged IPM, which on the
+card must equal the ``cr_solve`` launches.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "launches", "reset_launches", "NVCC_FLAGS"]
+__all__ = ["build", "load", "launches", "solver_calls", "reset_launches",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -29,13 +33,16 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"mono_ipm": 0, "disc_mono": 0, "resim_mono": 0}
+launches = {"mono_ipm": 0, "disc_mono": 0, "resim_mono": 0, "cr_solve": 0}
+solver_calls = {"raw_kkt_solve": 0}
 _libs = {}
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    """Set every count of ``launches`` and ``solver_calls`` to 0."""
+    for counts in (launches, solver_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

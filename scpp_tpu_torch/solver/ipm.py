@@ -1,7 +1,16 @@
 """Interior-point solver settings (counterpart of the ``IPMSettings``
 dataclass in ``scpp_tpu/solver/ipm.py``; the dense IPM itself is not
 ported yet). Field names and defaults match the reference exactly; see
-it for what each knob does."""
+it for what each knob does.
+
+Where the port differs: ``kkt_fused`` is accepted and changes nothing.
+The reference uses it to choose between XLA ops and a fused Pallas KKT
+solve, to save TPU dispatch overhead; in the port every
+single-right-hand-side KKT solve of the unfused staged IPM launches the
+``cr_solve`` CUDA kernel on the card. The unfused solver takes only
+``kkt="cr"``, ``kkt_dtype="working"``, ``refine_f64=False`` and
+``"highest"`` precisions, and raises ``NotImplementedError`` for the
+rest (``solver/ipm_staged.py:check_unfused_settings``)."""
 
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Monolithic staged IPM: the whole conic solve of a batch in one launch
 (counterpart of ``scpp_tpu/solver/ipm_mono.py``).
 
-``_prep`` (Ruiz equilibration, cost/rhs normalization, warm-start
-scaling) and ``_post`` (unscaling, original-space residuals) run as
-plain torch. Between them, ``mono_solve`` runs the NT-Mehrotra
+``_prep`` (Ruiz equilibration and cost/rhs normalization, shared with
+the unfused solver as ``ipm_staged._equilibrate``, and the warm-start
+scaling) and ``_post`` (unscaling, original-space residuals; shared, in
+``ipm_staged``) run as plain torch. Between them, ``mono_solve`` runs the NT-Mehrotra
 predictor-corrector solve: on a CUDA tensor it launches the hand-written
 kernel ``csrc/mono_ipm.cu`` (one thread block per scenario) or raises;
 on a CPU tensor it runs ``_solve_block``, the kernel's plain version.
@@ -21,7 +22,8 @@ import torch
 
 from scpp_tpu_torch import kernels
 from scpp_tpu_torch.solver.ipm import IPMSettings
-from scpp_tpu_torch.solver.ipm_staged import StagedSolverResult, _staged_ruiz
+from scpp_tpu_torch.solver.ipm_staged import (StagedSolverResult,
+                                             _equilibrate, _post)
 from scpp_tpu_torch.solver.mono_blocks import (block_tridiag_factor,
                                                block_tridiag_solve)
 from scpp_tpu_torch.solver.mono_cones import MonoCones
@@ -34,7 +36,8 @@ def mono_supported(prog: StagedProgram, settings: IPMSettings) -> bool:
     """The monolith covers the trajectory-subproblem class: no global
     block, at least one equality row per stage, full-precision lanes.
     The reference's w % 8 / me % 8 rules answer the TPU's tiling and do
-    not apply here; me > 0 is required (a zero-width dual block)."""
+    not apply here; me > 0 is required (a zero-width dual block), and
+    programs without equality rows take the unfused solver."""
     gm_zero = (prog.g == 0 and prog.A_geq.shape[-2] == 0
                and prog.G_g.shape[-2] == 0)
     return (gm_zero and prog.me > 0
@@ -338,102 +341,22 @@ def mono_solve(statics, *ins):
 # ---------------------------------------------------------------------------
 
 
-def _nanmedian(v):
-    """Row-wise median of the non-NaN entries of v (B, n), averaging the
-    two middle values when their count is even, as numpy's and JAX's
-    nanmedian do (torch.nanmedian returns the lower one); NaN for an
-    all-NaN row."""
-    n = (~torch.isnan(v)).sum(dim=-1, keepdim=True)
-    srt = torch.sort(v, dim=-1).values                 # NaN sorts last
-    lo = torch.gather(srt, -1, ((n - 1) // 2).clamp_min(0))
-    hi = torch.gather(srt, -1, (n // 2).clamp_max(v.shape[-1] - 1))
-    med = 0.5 * (lo + hi)
-    return torch.where(n > 0, med, torch.full_like(med, float("nan")))[:, 0]
-
-
 def _prep(prog: StagedProgram, settings: IPMSettings, warm_x, warm_y,
           warm_z, warm_ok):
     """Equilibrate and normalize a batch of programs (everything before
     the cone init of the reference) and pre-scale the warm start."""
-    K, w = prog.K, prog.w
     B = prog.A_eq.shape[0]
-    f = dict(dtype=prog.A_eq.dtype, device=prog.A_eq.device)
-    E_st, d_eq, d_c = _staged_ruiz(prog, settings.ruiz_iters)
-    Ecat = torch.cat([E_st, torch.cat([E_st[:, 1:],
-                                       torch.ones((B, 1, w), **f)], 1)],
-                     dim=2)[:, :, None, :]
-    A_eq = prog.A_eq[..., :2 * w] * d_eq[..., None] * Ecat
-    G = prog.G[..., :2 * w] * d_c[..., None] * Ecat
-    b_eq = prog.b_eq * d_eq
-    h = prog.h * d_c
-    c_st = prog.c_stage * E_st
-
-    cabs = torch.abs(c_st).reshape(B, -1)
-    c_scale = torch.clamp_min(
-        _nanmedian(torch.where(cabs > 0, cabs, torch.full_like(cabs,
-                                                               float("nan")))),
-        1.0)
-    c_scale = torch.where(torch.isfinite(c_scale), c_scale,
-                          torch.ones_like(c_scale))
-    b_scale = torch.clamp_min(torch.sqrt(
-        torch.sum(b_eq ** 2, dim=(1, 2)) + torch.sum(h ** 2, dim=(1, 2))), 1.0)
-    c_st = c_st / c_scale[:, None, None]
-    b_eq = b_eq / b_scale[:, None, None]
-    h = h / b_scale[:, None, None]
-
-    bnorm_o = 1.0 + torch.sqrt(torch.sum(prog.b_eq ** 2, dim=(1, 2))
-                               + torch.sum(prog.h ** 2, dim=(1, 2)))
-    cnorm_o = 1.0 + torch.sqrt(torch.sum(prog.c_stage ** 2, dim=(1, 2)))
-    pres_fac = b_scale / bnorm_o
-    dres_fac = c_scale / cnorm_o
-
+    (A_eq, G, b_eq, h, c_st), scales, (pres_fac, dres_fac) = \
+        _equilibrate(prog, settings)
+    E_st, d_eq, d_c, c_scale, b_scale = scales[:5]
     wx = warm_x / (E_st * b_scale[:, None, None])
     wy = warm_y / (d_eq * c_scale[:, None, None])
     wz = warm_z / (d_c * c_scale[:, None, None])
     scal = torch.stack([pres_fac, dres_fac, c_scale * b_scale,
                         warm_ok.to(pres_fac.dtype)], dim=-1).reshape(B, 1, 4)
-    scales = (E_st, d_eq, d_c, c_scale, b_scale, bnorm_o, cnorm_o)
     ins = (A_eq.transpose(-1, -2), G.transpose(-1, -2), b_eq, h, c_st, d_eq,
            d_c, E_st, scal, wx, wy, wz)
     return tuple(t.contiguous() for t in ins), scales
-
-
-def _post(prog: StagedProgram, x_st, y_st, s_st, z_st, scales):
-    """Unscale and compute the original-space residuals."""
-    E_st, d_eq, d_c, c_scale, b_scale, bnorm_o, cnorm_o = scales
-    w = prog.w
-    B = x_st.shape[0]
-    f = dict(dtype=x_st.dtype, device=x_st.device)
-    bs, cs = b_scale[:, None, None], c_scale[:, None, None]
-    x_st = x_st * E_st * bs
-    y_st = y_st * d_eq * cs
-    z_st = z_st * d_c * cs
-    s_u = s_st / d_c * bs
-
-    obj = torch.sum(prog.c_stage * x_st, dim=(1, 2))
-    xc = torch.cat([x_st, torch.cat([x_st[:, 1:],
-                                     torch.zeros((B, 1, w), **f)], 1)], dim=2)
-    A2 = prog.A_eq[..., :2 * w]
-    G2 = prog.G[..., :2 * w]
-    aeq = (A2 @ xc[..., None])[..., 0]
-    gc = (G2 @ xc[..., None])[..., 0]
-    res_pri = torch.sqrt(torch.sum((aeq - prog.b_eq) ** 2, dim=(1, 2))
-                         + torch.sum((gc + s_u - prog.h) ** 2, dim=(1, 2))
-                         ) / bnorm_o
-    vc = ((A2.transpose(-1, -2) @ y_st[..., None])[..., 0]
-          + (G2.transpose(-1, -2) @ z_st[..., None])[..., 0])
-    at_st = vc[..., :w] + torch.cat([torch.zeros((B, 1, w), **f),
-                                     vc[:, :-1, w:]], 1)
-    res_dua = torch.sqrt(torch.sum((prog.c_stage + at_st) ** 2,
-                                   dim=(1, 2))) / cnorm_o
-    by = (torch.sum(prog.b_eq * y_st, dim=(1, 2))
-          + torch.sum(prog.h * z_st, dim=(1, 2)))
-    res_gap = torch.abs(obj + by) / (1.0 + torch.abs(obj) + torch.abs(by))
-    return StagedSolverResult(
-        x_stage=x_st, x_glob=torch.zeros((B, prog.g), **f), obj=obj,
-        res_pri=res_pri, res_dua=res_dua, res_gap=res_gap,
-        y_stage=y_st, y_glob=torch.zeros((B, 0), **f), z_stage=z_st,
-        z_glob=torch.zeros((B, prog.G_g.shape[-2]), **f))
 
 
 def solve_staged_ipm_mono(prog: StagedProgram, settings: IPMSettings,

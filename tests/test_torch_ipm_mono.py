@@ -22,7 +22,7 @@ from scpp_tpu.solver import mono_blocks as j_blocks
 from scpp_tpu.solver.ipm import IPMSettings as JIPMSettings
 from scpp_tpu.solver.staged import StagedProgram as JStagedProgram
 from scpp_tpu_torch import convert, kernels
-from scpp_tpu_torch.solver import ipm_mono, mono_blocks
+from scpp_tpu_torch.solver import ipm_mono, ipm_staged, mono_blocks
 from scpp_tpu_torch.solver.ipm import IPMSettings
 from scpp_tpu_torch.solver.ipm_staged import solve_staged_ipm
 from test_torch_mono_kernel import breakdown_block
@@ -235,7 +235,7 @@ def test_nanmedian_rows():
     v = torch.tensor([[1.0, 2.0, 3.0, 4.0, float("nan")],
                       [5.0, float("nan"), 1.0, 3.0, 2.0],
                       [float("nan")] * 5], dtype=torch.float64)
-    got = ipm_mono._nanmedian(v)
+    got = ipm_staged._nanmedian(v)
     np.testing.assert_array_equal(got[:2].numpy(), [2.5, 2.5])
     assert bool(torch.isnan(got[2]))
 
@@ -256,17 +256,24 @@ def test_mono_supported_and_router():
     assert not ipm_mono.mono_supported(prog, st.replace(refine_f64=True))
     assert not ipm_mono.mono_supported(prog,
                                        st.replace(kkt_precision="default"))
-    # the unfused solver is not ported: everything else raises
-    with pytest.raises(NotImplementedError):
-        solve_staged_ipm(prog, st)                        # monolith=False
+    # monolith=False, and what the monolith does not take, run the
+    # unfused solver, as in the reference; what neither takes raises
+    kernels.reset_launches()
+    res = solve_staged_ipm(prog, st)                      # monolith=False
+    assert float(res.res_pri[0]) < 1e-7
+    assert kernels.solver_calls["raw_kkt_solve"] > 0
+    with pytest.raises(NotImplementedError, match="refine_f64"):
+        solve_staged_ipm(prog, st.replace(monolith=True, refine_f64=True))
     g_prog = prog.replace(g=1, A_geq=torch.zeros((1, 1, 1)),
                           b_geq=torch.zeros((1, 1)),
                           c_glob=torch.zeros((1, 1)))
     assert not ipm_mono.mono_supported(g_prog, st)
     with pytest.raises(NotImplementedError):
         solve_staged_ipm(g_prog, st.replace(monolith=True))
+    kernels.reset_launches()
     res = solve_staged_ipm(prog, st.replace(monolith=True))
     assert float(res.res_pri[0]) < 1e-7
+    assert kernels.solver_calls["raw_kkt_solve"] == 0
 
 
 def test_cpu_tensors_take_the_plain_version():

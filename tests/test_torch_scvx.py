@@ -44,6 +44,7 @@ from scpp_tpu_torch.configs.algorithms import SCvxConfig
 from scpp_tpu_torch.models import RocketQuat
 from scpp_tpu_torch.models.base import batch_params
 from scpp_tpu_torch.ops.discretization import multiple_shooting
+from scpp_tpu_torch.parallel.scenarios import bench_initial_states
 from scpp_tpu_torch.solver.ipm import IPMSettings
 from scpp_tpu_torch.solver.ipm_staged import solve_staged_ipm
 
@@ -315,12 +316,34 @@ def test_history_back_fills_past_the_last_step():
 
 @pytest.mark.parametrize("change", [{"backend": "dense"},
                                     {"l1_split": False},
-                                    {"solver": IPMSettings(monolith=False)}])
+                                    {"solver": IPMSettings(kkt="banded")}])
 def test_unported_configurations_raise(change):
     p = RocketQuat.default_params(torch.float64)
     with pytest.raises(NotImplementedError):
         solve_scvx(RocketQuat, p, dataclasses.replace(CFG, **change),
                    device="cpu")
+
+
+def bench_x_init():
+    """The initial states of the 64 scenarios that bench.py solves
+    (bench.py:bench_throughput): ``disperse_initial_state(RocketQuat,
+    RocketQuat.default_params(), PRNGKey(0), 64, scale=2.0)`` in float32,
+    as bench.py runs without x64 (jitted here: one compile instead of
+    ~5 s of per-operation dispatch; the two differ by at most 6e-8)."""
+    with jax.enable_x64(False):
+        fn = jax.jit(lambda key: j_disperse(
+            JRocketQuat, JRocketQuat.default_params(), key, 64, 2.0).x_init)
+        return np.asarray(fn(jax.random.PRNGKey(0)))
+
+
+def test_bench_initial_states_are_bench_py_s():
+    """The committed x_init file that chip_smoke.py solves holds exactly
+    bench.py's 64 dispersed initial states."""
+    want = bench_x_init()
+    assert want.dtype == np.float32 and want.shape == (64, 14)
+    got = bench_initial_states()
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
