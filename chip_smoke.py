@@ -11,10 +11,15 @@ of its kernel; the same solves on the fused dynamics path
 (``fuse_dynamics=True``: discretize and resim as one kernel launch each)
 with the launch counts of its three kernels; the same solves on the
 staged path (``fuse_dynamics=True`` and the unfused staged IPM,
-``monolith=False``: every KKT solve one ``cr_solve`` launch). Then one
-JSON line of kernel measurements, the card's name and power limit, and
-the result line. Any failure exits non-zero before the result line;
-without a CUDA device it exits non-zero at once.
+``monolith=False``: every KKT solve one ``cr_solve`` launch); then the
+Rocket2D receding-horizon MPC on bench.py's MPC parameters
+(``scpp_tpu_torch.algos.mpc.mpc_solve`` and
+``drivers.closed_loop.mpc_sim``) with both conic backends: the dense IPM
+(``MPCConfig()``, no kernel) and the first-order solver, whose every SOC
+projection is one ``soc_project`` launch. Then one JSON line of kernel
+measurements, the card's name and power limit, and the result line. Any
+failure exits non-zero before the result line; without a CUDA device it
+exits non-zero at once.
 """
 
 import contextlib
@@ -25,6 +30,7 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 # the reference pins full-fp32 products: no TF32 for matmuls or convolutions
@@ -51,6 +57,27 @@ CR_F32_CEILING = 5.5e-4
 # still solves in float32: about four times the reading on the card,
 # 1.83e-4 for the kernel and the plain version alike
 CR_MID_F32_CEILING = 7.5e-4
+# float32 ceiling of soc_project against the float64 plain projection
+# (see check_soc_kernel), about four times the card's first reading,
+# 3.68e-8 on the blocks of tests/test_torch_soc_project.py (kernel and
+# plain version alike)
+SOC_F32_CEILING = 1.5e-7
+# bench.py's MPC parameters (bench.py:155-157): the stock Rocket2D with
+# this initial state, x_final = 0, constrain_initial_final off
+MPC_X_INIT = (5.0, 30.0, 1.0, -2.0, 0.05, 0.0)
+# the reference's solved threshold (scpp_tpu/solver/scs.py:89-91)
+SOLVED = 1e-4
+# fixed ceiling of the float32 mpc_sim's final state on the card against
+# the port's float64 CPU run of the same 200 steps (max |difference|
+# relative to 1 + max |CPU state|), about four times the card's first
+# reading, 7.28e-2: the stock MPC.info weights do not stabilise this
+# plant (test_lqr_mpc.py:88-96), so the closed loop drifts and the
+# float32 solves' rounding grows along the 200 steps
+SIM_CEILING = 0.3
+# fixed ceiling of the same runs' state after step 50 (max |difference|),
+# about four times the card's reading there, 5.29e-5: the two runs part
+# only after it (see PERF.md, section 6)
+SIM50_CEILING = 2e-4
 
 
 def card():
@@ -190,20 +217,6 @@ def resim_work(X, U, substeps, method):
     flops = Bn * (K - 1) * (substeps * per_step + 3 * n)
     nbytes = X.element_size() * (X.numel() + U.numel() + Bn * 12)
     return nbytes, flops
-
-
-def unported_work():
-    """Bytes and operations of the TPU kernel still to port that would
-    run on the main path's programs (B=64, K=30; SOC sizes (5, 3, 3, 4,
-    4, 3) per stage), one call, float32: soc_pallas._soc_kernel, the
-    projection of every cone of the batch onto the SOC, each cone read
-    and written once, about 3q + 4 operations a cone (the norm, the
-    three-case select, the scaling)."""
-    esz, socs = 4, (5, 3, 3, 4, 4, 3)
-    n_cones = B * K
-    soc = (esz * 2 * n_cones * sum(socs),
-           n_cones * sum(3 * q + 4 for q in socs))
-    return {"soc_project (kernel 5)": soc}
 
 
 def bound(nbytes, flops):
@@ -420,6 +433,439 @@ def check_cr_kernel(tag, prog64, settings):
                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
+MPC_SOC = (7, 13) + (2,) * 7        # the MPC program's cones
+MPC_SOC_OFFSET = 94                 # after its 42 + 52 rows
+MPC_N = 56                          # its variables: the cone rows start
+                                    # at this column of the DR state
+
+
+def soc_case(rng, Bn, sizes, offset):
+    """A (Bn, offset + sum(sizes)) float64 cone vector on the card, with
+    the blocks' layout: block c of scenario b strictly inside the cone,
+    inside its polar (below), outside both, or z = 0, as (b + c) % 4."""
+    from scpp_tpu_torch.ops.soc_project import soc_blocks
+    blocks = soc_blocks(offset, tuple(sizes))
+    w = rng.standard_normal((Bn, offset + sum(sizes))) * 3.0
+    for b in range(Bn):
+        for c, (h, q) in enumerate(zip(blocks.heads, blocks.sizes)):
+            z = rng.standard_normal(q - 1) * rng.uniform(0.1, 10.0)
+            zn = float(np.linalg.norm(z))
+            case = (b + c) % 4
+            t = (zn * rng.uniform(1.1, 3.0), -zn * rng.uniform(1.1, 3.0),
+                 zn * rng.uniform(-0.9, 0.9), rng.uniform(-1.0, 1.0))[case]
+            w[b, h] = t
+            w[b, h + 1:h + q] = 0.0 if case == 3 else z
+    return torch.tensor(w, device="cuda"), blocks
+
+
+def fresh_launch_ms(fn, src, reps):
+    """ms per call of fn on ``reps`` fresh copies of src (a projection
+    leaves its blocks in the cone, so a second one would find no work),
+    launched back to back from the host, so the host's launch rate
+    bounds it for a kernel this short."""
+    bufs = [src.clone() for _ in range(reps + 1)]
+    fn(bufs[-1])
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    for buf in bufs[:reps]:
+        fn(buf)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_launch_ms(fn, src, reps):
+    """The device time per call of fn: ``reps`` calls on fresh copies of
+    src captured in one CUDA graph and replayed, so no host work sits
+    between the launches; the smallest of three replays, each on fresh
+    copies."""
+    bufs = [src.clone() for _ in range(reps)]
+    fn(src.clone())
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for buf in bufs:
+            fn(buf)
+    times = []
+    for _ in range(3):
+        for buf in bufs:
+            buf.copy_(src)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return min(times)
+
+
+def dr_state(rng, w):
+    """The cone vector w (Bn, m) as the first-order solver hands it to
+    soc_project_: the column slice [MPC_N, MPC_N + m) of a (Bn, MPC_N +
+    m + 1) Douglas-Rachford state, whose other columns are seeded
+    values. Returns the state."""
+    Bn, m = w.shape
+    st = torch.tensor(rng.standard_normal((Bn, MPC_N + m + 1)),
+                      dtype=w.dtype, device=w.device)
+    st[:, MPC_N:MPC_N + m] = w
+    return st
+
+
+def check_soc_kernel(tag):
+    """soc_project, through the solver's wrapper soc_project_ on the
+    layout the first-order solver gives it (the cone rows a column slice
+    of the Douglas-Rachford state, row stride MPC_N + m + 1), against its
+    plain version (ops/soc_project.py: _soc_plain, the reference's math
+    once per size group) on the same slice: B=64 x the MPC's nine cones
+    at their rows of the program (after 94 free rows), then cones of
+    sizes 1-40, every case. The gate is float64 <= 1e-12 relative to
+    1 + max |plain| (the two differ in the order of the sums of squares
+    and the card's fused multiply-adds); in float32 the kernel must land
+    within SOC_F32_CEILING of the float64 plain projection; the state's
+    other columns must come back unchanged. Then the time per call at the
+    MPC's shapes, B=1 and B=64, of the wrapper and of the plain version,
+    both on the device (CUDA graphs) and from the host. Returns (ok,
+    measures)."""
+    from scpp_tpu_torch.ops import soc_project as sp
+    rng = np.random.default_rng(0)
+    sizes = MPC_SOC + tuple(range(1, 41))
+    w64, blocks = soc_case(rng, B, sizes, MPC_SOC_OFFSET)
+    m = w64.shape[1]
+    cols = slice(MPC_N, MPC_N + m)
+
+    def dist(a, b):
+        return float((a.double() - b).abs().max() / (1 + b.abs().max()))
+
+    st64 = dr_state(rng, w64)
+    out, pads_ok = {}, True
+    for dt in (torch.float64, torch.float32):
+        st = st64.to(dt)
+        k, p = st.clone(), st.clone()
+        sp.soc_project_(k[:, cols], blocks)
+        sp._soc_plain(p[:, cols], blocks)
+        for x in (k, p):
+            pads_ok &= torch.equal(x[:, :MPC_N], st[:, :MPC_N]) and \
+                torch.equal(x[:, cols.stop:], st[:, cols.stop:])
+        out[dt] = (k[:, cols], p[:, cols])
+    torch.cuda.synchronize()
+    (k64, plain64), (k32, plain32) = out[torch.float64], out[torch.float32]
+    d64, dk, dp = dist(k64, plain64), dist(k32, plain64), dist(plain32,
+                                                               plain64)
+    ok = d64 <= 1e-12 and dk <= SOC_F32_CEILING and pads_ok and \
+        bool(torch.isfinite(k32).all())
+    print(f"  soc_project (wrapper on a column slice, row stride "
+          f"{MPC_N + m + 1}): float64 kernel vs plain {d64:.2e} (tolerance "
+          f"1e-12); float32 vs float64 plain, kernel / plain: {dk:.2e} / "
+          f"{dp:.2e} (kernel ceiling {SOC_F32_CEILING:g}); other columns "
+          f"{'unchanged' if pads_ok else 'CHANGED'} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    mpc_blocks = sp.soc_blocks(MPC_SOC_OFFSET, MPC_SOC)
+    m_mpc = MPC_SOC_OFFSET + sum(MPC_SOC)
+    mcols = slice(MPC_N, MPC_N + m_mpc)
+    times = {}
+    for Bn in (1, B):
+        w, _ = soc_case(rng, Bn, MPC_SOC, MPC_SOC_OFFSET)
+        src = dr_state(rng, w.float())
+        launch = lambda st: sp.soc_project_(st[:, mcols],   # noqa: E731
+                                            mpc_blocks)
+        plain = lambda st: sp._soc_plain(st[:, mcols],      # noqa: E731
+                                         mpc_blocks)
+        ms = graph_launch_ms(launch, src, 200)
+        plain_ms = graph_launch_ms(plain, src, 50)
+        eager_ms = fresh_launch_ms(launch, src, 200)
+        eager_plain_ms = fresh_launch_ms(plain, src, 50)
+        nbytes, flops = sp.soc_work(src[:, mcols], mpc_blocks)
+        b_ms, b_by = bound(nbytes, flops)
+        times[Bn] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by)
+        print(f"kernel time {tag}: soc_project float32 (B={Bn}, the MPC's "
+              f"cones {MPC_SOC}, through soc_project_ on the state's column "
+              f"slice): {ms:.4f} ms per call on the device, plain "
+              f"{plain_ms:.4f} ms (each in one CUDA graph, 200 / 50 "
+              f"calls); from the host, back to back, eager: {eager_ms:.4f} "
+              f"ms, plain {eager_plain_ms:.4f} ms; bound {b_ms:.2e} ms by "
+              f"{b_by} ({nbytes} B, {flops} FLOP, counted on this input); "
+              f"library: none (no single PyTorch call projects onto a "
+              f"second-order cone)")
+    return ok, dict(max_abs_err=float((k32 - plain32).abs().max()),
+                    library_ms=None, **times[B])
+
+
+def aten_ops(fn):
+    """The number of aten ops (views included) that one call of fn
+    dispatches: the length of the host's op stream."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def mpc_params(Bn, dtype=torch.float32, device="cuda"):
+    """bench.py's MPC parameters, Bn copies."""
+    from scpp_tpu_torch.models import Rocket2D
+    from scpp_tpu_torch.models.base import batch_params
+    p = Rocket2D.default_params(dtype, device).replace(
+        x_init=torch.tensor(MPC_X_INIT, dtype=dtype, device=device),
+        x_final=torch.zeros(6, dtype=dtype, device=device),
+        constrain_initial_final=False)
+    return batch_params(p, Bn)
+
+
+def worst_residual(res):
+    return torch.maximum(torch.maximum(res.res_pri, res.res_dua),
+                         res.res_gap)
+
+
+def run_mpc_ipm(tag):
+    """bench.py's MPC chain on the dense IPM (MPCConfig(), float32, B=1):
+    10 chains of 50 data-dependent re-solves, x_i = x (1 + 0.01 i), each
+    scaled by 1 + 1e-12 carry where carry is the sum of the previous
+    solve's first input; every re-solve timed with CUDA events. Then the
+    host per-call time (50 calls, each synchronised) and one batched
+    re-solve of x_i, i < 64. Returns (failures, launches, numbers)."""
+    from scpp_tpu_torch import kernels
+    from scpp_tpu_torch.algos.mpc import mpc_solve
+    from scpp_tpu_torch.configs.algorithms import MPCConfig
+    from scpp_tpu_torch.models import Rocket2D
+    cfg = MPCConfig()
+    p1 = mpc_params(1)
+    x = p1.x_init
+    n_chain, n_rep = 50, 10
+    xs = [x * (1.0 + 0.01 * i) for i in range(n_chain)]
+    mpc_solve(Rocket2D, p1, x, cfg)
+    torch.cuda.synchronize()
+    failed = []
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ev, chain_ev, worst = [], [], []
+    for _ in range(n_rep):
+        carry = torch.zeros((), device="cuda")
+        c0 = torch.cuda.Event(enable_timing=True)
+        c0.record()
+        for i in range(n_chain):
+            e0, e1 = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            e0.record()
+            _, U, res = mpc_solve(Rocket2D, p1, xs[i] * (1.0 + 1e-12 * carry),
+                                  cfg)
+            e1.record()
+            ev.append((e0, e1))
+            carry = U[0, 0].sum()
+            worst.append(worst_residual(res))
+        c1 = torch.cuda.Event(enable_timing=True)
+        c1.record()
+        chain_ev.append((c0, c1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    per = np.sort([a.elapsed_time(b) for a, b in ev])
+    chain_means = [a.elapsed_time(b) / n_chain for a, b in chain_ev]
+    worst = torch.cat(worst).cpu().numpy()
+    p50, p99 = float(np.percentile(per, 50)), float(np.percentile(per, 99))
+    print(f"mpc ipm {tag}: {len(per)} re-solves (B=1, float32, "
+          f"MPCConfig(), {n_rep} chains of {n_chain}): per re-solve p50 "
+          f"{p50:.2f} ms, p99 {p99:.2f} ms, max {per[-1]:.2f} ms (CUDA "
+          f"events); mean per re-solve of each chain "
+          + ", ".join(f"{v:.2f}" for v in chain_means)
+          + f" ms; {wall:.1f} s wall; worst "
+          f"residual {worst.max():.2e} (solved threshold {SOLVED:g}); "
+          f"launches " + ", ".join(f"{n} {c}" for n, c in launches.items()))
+    if not worst.max() < SOLVED:
+        failed.append(f"{int((worst >= SOLVED).sum())} of {len(worst)} "
+                      f"re-solves not solved")
+    if launches["soc_project"]:
+        failed.append(f"soc_project launched {launches['soc_project']} "
+                      f"times on the IPM")
+
+    host = []
+    for i in range(n_chain):
+        t0 = time.perf_counter()
+        U = mpc_solve(Rocket2D, p1, xs[i], cfg)[1]
+        float(U[0, 0].sum())
+        host.append((time.perf_counter() - t0) * 1e3)
+    host = np.sort(host)
+    n_ops = aten_ops(lambda: mpc_solve(Rocket2D, p1, x, cfg))
+    print(f"mpc ipm {tag}: host per call (each synchronised) p50 "
+          f"{float(np.percentile(host, 50)):.2f} ms, p99 "
+          f"{float(np.percentile(host, 99)):.2f} ms; {n_ops} aten ops per "
+          f"re-solve")
+
+    pb = mpc_params(B)
+    xb = pb.x_init * (1.0 + 0.01 * torch.arange(B, device="cuda"))[:, None]
+    mpc_solve(Rocket2D, pb, xb, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mpc_solve(Rocket2D, pb, xb, cfg)[2]
+    solved = int((worst_residual(res) < SOLVED).sum())
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    print(f"mpc ipm {tag}: one batched re-solve B={B}: {batch_ms:.1f} ms "
+          f"(host clock, synchronised), {solved}/{B} solved, worst "
+          f"residual {float(worst_residual(res).max()):.2e}")
+    if solved != B:
+        failed.append(f"batched re-solve: {solved}/{B} solved")
+    return failed, launches, dict(p50=p50, p99=p99)
+
+
+def run_mpc_scs(tag):
+    """The first-order backend, MPCConfig(solver=SolverSettings(
+    warm_start=True)), float32: a cold solve, then a chain of 10 warm
+    re-solves of x_i = x (1 + 0.01 i), at B=1 and at B=64. Gates: finite
+    results, and every SOC projection one soc_project launch,
+    (iters + 1) per solve. The float32 residuals are printed, not gated
+    (the reference's STATUS expects them near 5e-4). Then the float64
+    arithmetic: the card's plain Douglas-Rachford solve (aa_memory=0) of
+    the MPC program against the port's CPU run of the same solve, 1e-9
+    relative. Returns (failures, launches)."""
+    from scpp_tpu_torch import kernels
+    from scpp_tpu_torch.algos.mpc import mpc_program, mpc_solve
+    from scpp_tpu_torch.configs.algorithms import MPCConfig
+    from scpp_tpu_torch.models import Rocket2D
+    from scpp_tpu_torch.models.base import map_tensors
+    from scpp_tpu_torch.solver.scs import SolverSettings, solve_conic
+    cfg = MPCConfig(solver=SolverSettings(warm_start=True))
+    iters = cfg.solver.iters
+    failed, total = [], {}
+    for Bn in (1, B):
+        pb = mpc_params(Bn)
+        scale = 1.0 + 0.01 * torch.arange(Bn, device="cuda")[:, None]
+        res = mpc_solve(Rocket2D, pb, pb.x_init * scale, cfg)[2]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        worst, finite = [], []
+        for i in range(10):
+            X, U, res = mpc_solve(Rocket2D, pb,
+                                  pb.x_init * scale * (1.0 + 0.01 * i), cfg,
+                                  warm=res)
+            worst.append(worst_residual(res))
+            finite.append(torch.isfinite(U).all() & torch.isfinite(X).all()
+                          & torch.isfinite(res.u).all())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 10
+        launches = dict(kernels.launches)
+        calls = kernels.solver_calls["soc_projection"]
+        if Bn == 1:
+            n_ops = aten_ops(lambda: mpc_solve(Rocket2D, pb, pb.x_init, cfg,
+                                               warm=res))
+            print(f"mpc scs {tag}: {n_ops} aten ops per warm re-solve "
+                  f"({n_ops / (iters + 1):.0f} per Douglas-Rachford step)")
+        worst = torch.stack(worst).cpu().numpy()
+        print(f"mpc scs {tag}: B={Bn}, 10 warm re-solves: {ms:.1f} ms per "
+              f"re-solve (host clock, synchronised at the end); float32 "
+              f"worst residual per re-solve {worst.max(1).min():.2e}-"
+              f"{worst.max():.2e}, {int((worst < SOLVED).sum())}/"
+              f"{worst.size} solved (printed only); soc_project launches "
+              f"{launches['soc_project']}, solver projections {calls}, "
+              f"expected {(iters + 1) * 10}")
+        if not bool(torch.stack(finite).all()):
+            failed.append(f"B={Bn}: non-finite results")
+        if not launches["soc_project"] == calls == (iters + 1) * 10:
+            failed.append(f"B={Bn}: soc_project {launches['soc_project']} "
+                          f"launches, {calls} projections, expected "
+                          f"{(iters + 1) * 10}")
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+
+    # float64 arithmetic: the card against the port's CPU run
+    p64 = mpc_params(1, torch.float64)
+    prog = mpc_program(Rocket2D, p64, p64.x_init, cfg)
+    plain_dr = SolverSettings(aa_memory=0)
+    card = solve_conic(prog, plain_dr)
+    cpu = solve_conic(map_tensors(prog, lambda t: t.cpu()), plain_dr)
+    d = max(float((getattr(card, n).cpu() - getattr(cpu, n)).abs().max()
+                  / (1 + getattr(cpu, n).abs().max()))
+            for n in ("x", "y", "s", "u", "v"))
+    print(f"mpc scs {tag}: float64 aa_memory=0 solve, card vs the port's "
+          f"CPU run: {d:.2e} (tolerance 1e-9)")
+    if not d <= 1e-9:
+        failed.append(f"float64 card vs CPU {d:.2e}")
+    return failed, total
+
+
+def run_mpc_sim(tag):
+    """mpc_sim with MPCConfig(), B=1, 200 steps of 0.01 s (bench.py:214)
+    in float32 on the card, against the port's float64 CPU run: all
+    finite, the same active steps, the state after step 50 within
+    SIM50_CEILING (the runs are still together there) and the final
+    state within SIM_CEILING. The port's float32 CPU run is printed
+    beside, against the same float64 run: the witness of how far float32
+    rounding alone carries this closed loop. Returns (failures,
+    launches)."""
+    from scpp_tpu_torch import kernels
+    from scpp_tpu_torch.configs.algorithms import MPCConfig
+    from scpp_tpu_torch.drivers.closed_loop import mpc_sim
+    from scpp_tpu_torch.models import Rocket2D
+    cfg, n_steps = MPCConfig(), 200
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = mpc_sim(Rocket2D, mpc_params(1), cfg, 2.0, 0.01)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    t0 = time.perf_counter()
+    ref = mpc_sim(Rocket2D, mpc_params(1, torch.float64, "cpu"), cfg, 2.0,
+                  0.01, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu32 = mpc_sim(Rocket2D, mpc_params(1, torch.float32, "cpu"), cfg, 2.0,
+                    0.01, device="cpu")
+    cpu32_s = time.perf_counter() - t0
+    final, ref_final = hist.X[0, -1].cpu().double(), ref.X[0, -1]
+    d = float((final - ref_final).abs().max() / (1 + ref_final.abs().max()))
+    d32 = float((cpu32.X[0, -1].double() - ref_final).abs().max()
+                / (1 + ref_final.abs().max()))
+    c32_final = cpu32.X[0, -1].double()
+    d_c32 = float((final - c32_final).abs().max()
+                  / (1 + c32_final.abs().max()))
+    along = {name: (X.double() - ref.X[0]).abs().amax(-1)
+             for name, X in (("card float32", hist.X[0].cpu()),
+                             ("CPU float32", cpu32.X[0]))}
+    for name, a in along.items():
+        print(f"mpc sim {tag}: max |{name} - CPU float64| state after step "
+              + ", ".join(f"{k + 1}: {float(a[k]):.2e}"
+                          for k in (9, 49, 99, 149, n_steps - 1)))
+    d50 = float(along["card float32"][49])
+    finite = bool(torch.isfinite(hist.X).all() & torch.isfinite(hist.U).all())
+    print(f"mpc sim {tag}: {n_steps} steps of 0.01 s (B=1, float32, "
+          f"MPCConfig()): {wall * 1e3 / n_steps:.1f} ms per step ({wall:.1f} "
+          f"s wall); active steps {int(hist.steps[0])} (CPU float64 "
+          f"{int(ref.steps[0])}, CPU float32 {int(cpu32.steps[0])}), "
+          f"reached_end {bool(hist.reached_end[0])}; after step 50 "
+          f"{d50:.2e} from the CPU float64 run (ceiling {SIM50_CEILING:g}); "
+          f"final state {[round(v, 4) for v in final.tolist()]}, distance "
+          f"from the CPU float64 run {d:.2e} (ceiling {SIM_CEILING:g}; the "
+          f"CPU float32 run's {d32:.2e}, the card's from the CPU float32 "
+          f"run {d_c32:.2e}; CPU runs: float64 {cpu_s:.1f} s, "
+          f"float32 {cpu32_s:.1f} s); "
+          f"launches " + ", ".join(f"{n} {c}" for n, c in launches.items()))
+    failed = []
+    if launches["soc_project"]:
+        failed.append(f"soc_project launched {launches['soc_project']} "
+                      f"times on the IPM")
+    if hist.X.shape[1] != n_steps or not finite:
+        failed.append("non-finite or short history")
+    if int(hist.steps[0]) != int(ref.steps[0]):
+        failed.append("active steps differ from the CPU run")
+    if not d50 <= SIM50_CEILING:
+        failed.append(f"state after step 50 {d50:.2e} from the CPU run")
+    if not d <= SIM_CEILING:
+        failed.append(f"final state {d:.2e} from the CPU run")
+    return failed, launches
+
+
 def run_path(tag, label, cfg, params):
     """First call, then a warm call with the CUDA-event phase split and
     the launch counts; gates the warm call's results. Returns (ok,
@@ -602,12 +1048,10 @@ def main():
     staged = dataclasses.replace(cfg, fuse_dynamics=True,
                                  solver=cfg.solver.replace(monolith=False))
     ok_cr, measures["cr_solve"] = check_cr_kernel(tag, prog64, staged.solver)
-    for name, (nbytes, flops) in unported_work().items():
-        b_ms, b_by = bound(nbytes, flops)
-        print(f"bound {tag}: {name}, not ported, one call at the main "
-              f"path's shapes: {b_ms:.6f} ms by {b_by} ({nbytes / 1e6:.3f} "
-              f"MB, {flops / 1e6:.3f} MFLOP)")
-    if not (ok_all and ok_fused and ok_cr):
+    print(f"kernel vs plain {tag}: soc_project, B={B} x the MPC's nine cones "
+          f"and cones of sizes 1-40, every case")
+    ok_soc, measures["soc_project"] = check_soc_kernel(tag)
+    if not (ok_all and ok_fused and ok_cr and ok_soc):
         print("kernel vs plain: FAILED", file=sys.stderr)
         return 1
 
@@ -618,23 +1062,45 @@ def main():
     failed, launches, _, steps = run_path(tag, "main path", cfg, params)
     ok_main = gate_launches("main path", failed, launches, steps,
                             ["mono_ipm"], ["cr_solve", "disc_mono",
-                                           "resim_mono"])
+                                           "resim_mono", "soc_project"])
     failed, fused_launches, _, steps = run_path(
         tag, "fused path", dataclasses.replace(cfg, fuse_dynamics=True),
         params)
     ok_fused = gate_launches("fused path", failed, fused_launches, steps,
                              ["disc_mono", "resim_mono", "mono_ipm"],
-                             ["cr_solve"])
+                             ["cr_solve", "soc_project"])
     failed, staged_launches, raw, steps = run_path(tag, "staged path",
                                                    staged, params)
     ok_staged = gate_launches("staged path", failed, staged_launches, steps,
-                              ["disc_mono", "resim_mono"], ["mono_ipm"],
-                              raw=raw)
+                              ["disc_mono", "resim_mono"],
+                              ["mono_ipm", "soc_project"], raw=raw)
     if not (ok_main and ok_fused and ok_staged):
         return 1
     launches.update({n: fused_launches[n] for n in ("disc_mono",
                                                     "resim_mono")})
     launches["cr_solve"] = staged_launches["cr_solve"]
+
+    # ---- the receding-horizon MPC: dense IPM, first-order, closed loop ----
+    # Each run's launch counts are set to 0 just before it and read just
+    # after; only the first-order solver launches soc_project.
+    t_mpc = time.perf_counter()
+    ok_mpc = True
+    for label, run in (("mpc ipm", run_mpc_ipm), ("mpc scs", run_mpc_scs),
+                       ("mpc sim", run_mpc_sim)):
+        failed, mpc_launches, *_ = run(tag)
+        others = [n for n, c in mpc_launches.items()
+                  if c and n != "soc_project"]
+        if others:
+            failed.append("kernels of the SCvx paths launched: "
+                          + ", ".join(others))
+        if label == "mpc scs":
+            launches["soc_project"] = mpc_launches["soc_project"]
+        if failed:
+            print(f"{label}: FAILED: " + "; ".join(failed), file=sys.stderr)
+            ok_mpc = False
+    print(f"mpc {tag}: phase {time.perf_counter() - t_mpc:.1f} s")
+    if not ok_mpc:
+        return 1
 
     sources = {"mono_ipm": ("scpp_tpu_torch/csrc/mono_ipm.cu",
                             "scpp_tpu/solver/ipm_mono.py:385"),
@@ -643,9 +1109,12 @@ def main():
                "resim_mono": ("scpp_tpu_torch/csrc/disc_mono.cu",
                               "scpp_tpu/ops/disc_mono.py:320"),
                "cr_solve": ("scpp_tpu_torch/csrc/cr_solve.cu",
-                            "scpp_tpu/solver/cr_pallas.py:86")}
-    # library_ms: no single PyTorch call solves an SOCP or integrates a
-    # variational or nonlinear ODE; cr_solve's is a batched lu_solve
+                            "scpp_tpu/solver/cr_pallas.py:86"),
+               "soc_project": ("scpp_tpu_torch/csrc/soc_project.cu",
+                               "scpp_tpu/ops/soc_pallas.py:47")}
+    # library_ms: no single PyTorch call solves an SOCP, integrates a
+    # variational or nonlinear ODE or projects onto a second-order cone;
+    # cr_solve's is a batched lu_solve
     for name in ("mono_ipm", "disc_mono", "resim_mono"):
         measures[name]["library_ms"] = None
     print(json.dumps({"kernels": [dict(

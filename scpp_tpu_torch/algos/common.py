@@ -8,14 +8,19 @@ import dataclasses
 import torch
 
 from scpp_tpu_torch.ops.simulation import simulate
-from scpp_tpu_torch.trajectory import TrajectoryData
+from scpp_tpu_torch.trajectory import TrajectoryData, scenario_where
 
-__all__ = ["tree_select", "interval_resimulation", "nonlinear_defect_cost",
+__all__ = ["full_fp32", "tree_select",
+           "interval_resimulation", "nonlinear_defect_cost",
            "linear_defect_cost"]
 
 
-def _where(pred, a, b):
-    return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
+def full_fp32(device):
+    """The reference pins full-fp32 products (precision=HIGHEST): keep
+    TF32 off for matmuls and convolutions on the card."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def tree_select(pred, a, b):
@@ -25,7 +30,7 @@ def tree_select(pred, a, b):
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
         if isinstance(x, torch.Tensor):
-            changes[f.name] = _where(pred, x, y)
+            changes[f.name] = scenario_where(pred, x, y)
     return dataclasses.replace(a, **changes)
 
 

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 
 import torch
 
-from scpp_tpu_torch.algos.common import (linear_defect_cost,
+from scpp_tpu_torch.algos.common import (full_fp32, linear_defect_cost,
                                          nonlinear_defect_cost, tree_select)
 from scpp_tpu_torch.algos.staged_problems import build_scvx_subproblem_staged
 from scpp_tpu_torch.configs.algorithms import SCvxConfig
@@ -63,14 +63,6 @@ def _no_phase(name):
     return contextlib.nullcontext()
 
 
-def _full_fp32(device):
-    # the reference pins full-fp32 products (precision=HIGHEST); keep
-    # TF32 off for matmuls and convolutions on the card
-    if torch.device(device).type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-
 def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
                warm_td: TrajectoryData = None, device="cuda",
                phase=_no_phase) -> SCvxResult:
@@ -85,7 +77,7 @@ def solve_scvx(model, params, cfg: SCvxConfig = SCvxConfig(),
                                   "ported")
     if not cfg.solver.monolith:
         check_unfused_settings(cfg.solver)
-    _full_fp32(device)
+    full_fp32(device)
     params = map_tensors(params, lambda t: t.to(device))
     if cfg.nondimensionalize:
         params = model.nondimensionalize(params)

@@ -1,7 +1,7 @@
-"""Algorithm configuration (counterpart of ``SCvxConfig`` in
-``scpp_tpu/configs/algorithms.py``; ``.info`` loading and the other
-algorithms' configs are not ported yet). Defaults are the stock Rocket2D
-SCvx.info values, as in the reference."""
+"""Algorithm configuration (counterpart of ``SCvxConfig`` and
+``MPCConfig`` in ``scpp_tpu/configs/algorithms.py``; ``.info`` loading
+and the other algorithms' configs are not ported yet). Defaults are the
+stock Rocket2D SCvx.info and MPC.info values, as in the reference."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from dataclasses import dataclass
 
 from scpp_tpu_torch.solver.ipm import IPMSettings
 
-__all__ = ["SCvxConfig"]
+__all__ = ["SCvxConfig", "MPCConfig"]
 
 
 @dataclass(frozen=True)
@@ -37,3 +37,26 @@ class SCvxConfig:
     fuse_dynamics: bool = False
     warm_start: bool = True
     solver: object = IPMSettings(iters=30)
+
+
+@dataclass(frozen=True)
+class MPCConfig:
+    """Linear receding-horizon SOCP MPC, MPC.info.
+
+    ``solver``: the production backend is the dense IPM (default); a
+    first-order HSD backend (``solver.scs.SolverSettings``) is also
+    accepted, an experimental oracle in the reference (float32 warm
+    re-solves stall near 5e-4 residuals). ``nondimensionalize`` and
+    ``constant_dynamics`` are parsed for MPC.info compatibility and read
+    by nothing, as in the reference: the dynamics matrices are inputs of
+    every solve, so both reference modes behave the same."""
+
+    K: int = 7
+    time_horizon: float = 1.5
+    nondimensionalize: bool = False
+    constant_dynamics: bool = True
+    intermediate_cost_active: bool = False
+    state_weights_intermediate: tuple = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
+    state_weights_terminal: tuple = (5.0, 5.0, 5.0, 1.0, 1.0, 1.0)
+    input_weights: tuple = (0.1, 0.1)
+    solver: object = IPMSettings(iters=20)

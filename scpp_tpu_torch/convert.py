@@ -14,13 +14,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from scpp_tpu_torch.solver.builder import ConicProgram
 from scpp_tpu_torch.solver.ipm import IPMSettings
 from scpp_tpu_torch.solver.ipm_staged import StagedSolverResult
+from scpp_tpu_torch.solver.scs import SolverResult, SolverSettings
 from scpp_tpu_torch.solver.staged import StagedProgram
 from scpp_tpu_torch.trajectory import DiscretizationData, TrajectoryData
 
 __all__ = ["tensor", "params", "trajectory", "discretization",
-           "staged_program", "staged_solver_result", "ipm_settings"]
+           "staged_program", "staged_solver_result", "ipm_settings",
+           "conic_program", "solver_result", "solver_settings"]
 
 
 def _get(src, name):
@@ -102,3 +105,29 @@ def ipm_settings(src) -> IPMSettings:
     """IPMSettings with the reference settings' field values."""
     return IPMSettings(**{f.name: _get(src, f.name)
                           for f in dataclasses.fields(IPMSettings)})
+
+
+def conic_program(src, batched: bool = False, dtype=None, device="cpu"):
+    """A ConicProgram from the reference's (A, b, c and its static cone
+    layout)."""
+    kw = {n: tensor(_get(src, n), batched, dtype, device)
+          for n in ("A", "b", "c")}
+    kw["n_eq"] = int(_get(src, "n_eq"))
+    kw["n_ineq"] = int(_get(src, "n_ineq"))
+    kw["soc_sizes"] = tuple(int(q) for q in _get(src, "soc_sizes"))
+    kw["var_layout"] = tuple(
+        (str(nm), int(off), tuple(int(d) for d in shape))
+        for nm, off, shape in _get(src, "var_layout"))
+    return ConicProgram(**kw)
+
+
+def solver_result(src, batched: bool = False, dtype=None, device="cpu"):
+    return SolverResult(**{f.name: tensor(_get(src, f.name), batched, dtype,
+                                          device)
+                           for f in dataclasses.fields(SolverResult)})
+
+
+def solver_settings(src) -> SolverSettings:
+    """SolverSettings with the reference settings' field values."""
+    return SolverSettings(**{f.name: _get(src, f.name)
+                             for f in dataclasses.fields(SolverSettings)})

@@ -11,7 +11,10 @@ import time.
 where it launches its kernel and nowhere else. ``solver_calls`` counts
 what the solvers ask for, on any device: ``raw_kkt_solve`` is one
 single-right-hand-side KKT solve of the unfused staged IPM, which on the
-card must equal the ``cr_solve`` launches.
+card must equal the ``cr_solve`` launches; ``soc_projection`` is one
+projection of a batch's SOC blocks by the first-order conic solver
+(``solver/scs.py``), which on the card must equal the ``soc_project``
+launches.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"mono_ipm": 0, "disc_mono": 0, "resim_mono": 0, "cr_solve": 0}
-solver_calls = {"raw_kkt_solve": 0}
+launches = {"mono_ipm": 0, "disc_mono": 0, "resim_mono": 0, "cr_solve": 0,
+            "soc_project": 0}
+solver_calls = {"raw_kkt_solve": 0, "soc_projection": 0}
 _libs = {}
 
 

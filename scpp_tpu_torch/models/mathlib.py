@@ -11,12 +11,19 @@ import math
 
 import torch
 
-__all__ = ["deg2rad", "quat_mul", "quat_to_rotmat", "euler_xyz_to_quat",
-           "quat_to_euler_xyz", "slerp"]
+__all__ = ["deg2rad", "rot2d", "quat_mul", "quat_to_rotmat",
+           "euler_xyz_to_quat", "quat_to_euler_xyz", "slerp"]
 
 
 def deg2rad(x):
     return x * (math.pi / 180.0)
+
+
+def rot2d(angle):
+    """2x2 rotation matrices of angles (...,) -> (..., 2, 2)."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    return torch.stack([torch.stack([c, -s], -1),
+                        torch.stack([s, c], -1)], -2)
 
 
 def quat_mul(q1, q2):

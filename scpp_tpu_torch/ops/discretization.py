@@ -6,6 +6,9 @@ variational equation Y' = A(t) Y + R(t) of the augmented state
 Y = [Phi | Y_B | (Y_C) | y_z] with fixed-step RK and read A_k, B_k, C_k,
 z_k off Y(dt). This slice ports the fixed-final-time variant only (the
 reference's ``variable_time=False``); FOH and ZOH both work.
+
+:func:`exact_linear_discretization` is the MPC's: the exact ZOH
+discretization about an equilibrium by matrix exponential.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from scpp_tpu_torch.models.base import flow_with_jacobians
 from scpp_tpu_torch.ops.integrators import integrate_fixed
 from scpp_tpu_torch.trajectory import DiscretizationData, TrajectoryData
 
-__all__ = ["multiple_shooting"]
+__all__ = ["multiple_shooting", "exact_linear_discretization"]
 
 
 def _interval_ode(model, par, u0, u1, dt, interpolate_input):
@@ -74,3 +77,31 @@ def multiple_shooting(model, par, td: TrajectoryData, sigma=None,
     return DiscretizationData(
         A=Y[..., :n], B=Y[..., n:n + m], z=Y[..., -1],
         C=Y[..., n + m:n + 2 * m] if foh else None)
+
+
+def exact_linear_discretization(model, par, ts, x_eq, u_eq):
+    """Equilibrium ZOH discretization via matrix exponential, batched:
+    ``par`` (B, p), ``x_eq`` (B, n), ``u_eq`` (B, m), ``ts`` a float.
+
+    Parity with discretization.cpp:9-40: A, B from
+    expm([[Ac, Bc], [0, 0]] ts) and the affine term z from
+    expm([[Ac, f - Ac x - Bc u], [0, 0]] ts). Returns A (B, n, n),
+    B (B, n, m), z (B, n)."""
+    fx, A_c, B_c = flow_with_jacobians(model, x_eq, u_eq, par)
+    n, m = model.state_dim, model.input_dim
+    Bn = x_eq.shape[0]
+
+    E = x_eq.new_zeros((Bn, n + m, n + m))
+    E[:, :n, :n] = A_c
+    E[:, :n, n:] = B_c
+    expE = torch.linalg.matrix_exp(E * ts)
+    A = expE[:, :n, :n]
+    B = expE[:, :n, n:]
+
+    E2 = x_eq.new_zeros((Bn, n + 1, n + 1))
+    r = fx - (A_c @ x_eq[..., None])[..., 0] - (B_c @ u_eq[..., None])[..., 0]
+    E2[:, :n, :n] = A_c
+    E2[:, :n, n] = r
+    expE2 = torch.linalg.matrix_exp(E2 * ts)
+    z = expE2[:, :n, n]
+    return A, B, z

@@ -14,12 +14,18 @@ from typing import Optional
 
 import torch
 
-__all__ = ["TrajectoryData", "DiscretizationData", "replace"]
+__all__ = ["TrajectoryData", "DiscretizationData", "replace",
+           "scenario_where"]
 
 
 def replace(obj, **changes):
     """``dataclasses.replace`` under the name the JAX structs use."""
     return dataclasses.replace(obj, **changes)
+
+
+def scenario_where(pred, a, b):
+    """pred ? a : b per scenario: ``pred`` (B,) bool, a and b (B, ...)."""
+    return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
 
 
 @dataclass
