@@ -16,8 +16,13 @@ Rocket2D receding-horizon MPC on bench.py's MPC parameters
 (``scpp_tpu_torch.algos.mpc.mpc_solve`` and
 ``drivers.closed_loop.mpc_sim``) with both conic backends: the dense IPM
 (``MPCConfig()``, no kernel) and the first-order solver, whose every SOC
-projection is one ``soc_project`` launch. Then one JSON line of kernel
-measurements, the card's name and power limit, and the result line. Any
+projection is one ``soc_project`` launch. Then the calibration slice:
+every probe kernel of ``csrc/calib.cu`` against its plain version, the
+monolithic IPM's ``part`` hook (init, one and two iterations, the whole
+solve) on the main path's programs, and the calibration scripts
+(``scpp_tpu_torch.diag.mono_calib``, ``mono_probe``, ``mono_parts``) with
+their launch counts. Then one JSON line of kernel measurements, the
+card's name and power limit, and the result line. Any
 failure exits non-zero before the result line; without a CUDA device it
 exits non-zero at once.
 """
@@ -948,6 +953,186 @@ def gate_launches(label, failed, launches, n_steps, each_step, never,
     return not failed
 
 
+# float32 tolerances of the probe kernels against their plain versions at
+# 2 steps, relative to 1 + max |plain| (tests/test_torch_calib.py holds the
+# plain versions against the reference's bodies at the same): the FMA
+# loops differ in the order of their sums and the card's fused
+# multiply-adds, the two sweeps also in the cancellation of their rank-1
+# updates; float64 to 1e-10
+PROBE_F32_TOL = {"chol_sweep": 1e-4, "chol8flat": 1e-4}
+PROBE_FMA_F32_TOL = 1e-5
+PROBE_F64_TOL = 1e-10
+PROBE_STEPS = 2
+
+
+def check_probe_kernels():
+    """Every calibration probe through its kernel and its plain version on
+    the same inputs, at the probe's full shapes and 2 steps (where every
+    body is finite in float32), float64 and float32. Returns (ok, the
+    largest float32 |kernel - plain| of each function)."""
+    from scpp_tpu_torch.diag import calib
+    ok, max_err = True, defaultdict(float)
+    for name, pr in calib.PROBES.items():
+        dist = {}
+        for dtype in (torch.float64, torch.float32):
+            ins = calib.probe_inputs(name, "cuda", dtype)
+            k = calib._call(name, ins, PROBE_STEPS)
+            p = calib._plain_call(name, ins, PROBE_STEPS)
+            torch.cuda.synchronize()
+            dist[dtype] = float((k.double() - p.double()).abs().max()
+                                / (1 + p.double().abs().max()))
+            if dtype == torch.float32:
+                max_err[pr.fn] = max(max_err[pr.fn],
+                                     float((k - p).abs().max()))
+                finite = bool(torch.isfinite(k).all())
+        tol = PROBE_F32_TOL.get(pr.fn, PROBE_FMA_F32_TOL)
+        good = (dist[torch.float64] <= PROBE_F64_TOL
+                and dist[torch.float32] <= tol and finite)
+        print(f"  calib {name} ({pr.fn}): kernel vs plain float64 "
+              f"{dist[torch.float64]:.2e} (tolerance {PROBE_F64_TOL:g}), "
+              f"float32 {dist[torch.float32]:.2e} (tolerance {tol:g}) -> "
+              f"{'ok' if good else 'FAIL'}")
+        ok &= good
+    return ok, dict(max_err)
+
+
+def check_mono_parts(tag, statics, prog64, prog32):
+    """Kernel 1's ``part`` hook on the step-0 subproblems of the main path
+    (cold): init and iter1 against their plain versions (float64 1e-6 with
+    the same counts, float32 within F32_CEILING of the float64 plain
+    result, as the whole solve is held), the default launch and
+    ``part="full"`` bit for bit alike in float32 (both pass part code -1:
+    a check of determinism; that the default launch is the parent's rests
+    on the main path's gates and its time), and the time of init, iter1,
+    iter2 and full by CUDA events. Returns (ok, parts)."""
+    from scpp_tpu_torch.solver import ipm_mono
+    st = statics[-1]
+    ok = True
+    ins = {}
+    for dt, prog in ((torch.float64, prog64), (torch.float32, prog32)):
+        f = dict(dtype=dt, device="cuda")
+        ins[dt], _ = ipm_mono._prep(
+            prog, st, torch.zeros((B, K, prog.w), **f),
+            torch.zeros((B, K, prog.me), **f),
+            torch.zeros((B, K, prog.mc), **f),
+            torch.zeros(B, dtype=torch.bool, device="cuda"))
+
+    def dist(a, b):
+        return max(float((u.double() - v).abs().max() / (1 + v.abs().max()))
+                   for u, v in zip(a[:4], b[:4]))
+
+    for part in ("init", "iter1"):
+        p64 = ipm_mono._solve_block(statics, *ins[torch.float64], part=part)
+        k64 = ipm_mono.mono_solve(statics, *ins[torch.float64], part=part)
+        k32 = ipm_mono.mono_solve(statics, *ins[torch.float32], part=part)
+        torch.cuda.synchronize()
+        d64, d32 = dist(k64, p64), dist(k32, p64)
+        same = torch.equal(k64[4][:, 0, 1], p64[4][:, 0, 1])
+        finite = all(bool(torch.isfinite(t).all()) for t in k32[:4])
+        good = d64 <= 1e-6 and same and d32 <= F32_CEILING and finite
+        print(f"  mono_ipm part={part}: float64 kernel vs plain {d64:.2e} "
+              f"(tolerance 1e-6), counts {'equal' if same else 'DIFFER'}; "
+              f"float32 kernel vs float64 plain {d32:.2e} (ceiling "
+              f"{F32_CEILING:g}) -> {'ok' if good else 'FAIL'}")
+        ok &= good
+    ins32 = ins[torch.float32]
+    default = ipm_mono.mono_solve(statics, *ins32)
+    full = ipm_mono.mono_solve(statics, *ins32, part="full")
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(default, full))
+    print(f"  mono_ipm part=full vs the default launch, float32 (both part "
+          f"code -1, a determinism check): "
+          f"{'bit for bit equal' if same else 'DIFFER'}")
+    ok &= same
+    parts = {}
+    for part, reps in (("init", 10), ("iter1", 10), ("iter2", 10),
+                       ("full", 5)):
+        parts[f"{part}_ms"] = cuda_ms(
+            lambda: ipm_mono.mono_solve(statics, *ins32, part=part), reps)
+    parts["per_iter_ms"] = parts["iter2_ms"] - parts["iter1_ms"]
+    iters = default[4][:, 0, 1]
+    parts["iterations"] = [int(iters.min()), int(iters.max())]
+    print(f"kernel time {tag}: mono_ipm parts, float32, B={B} cold: init "
+          f"{parts['init_ms']:.3f} ms, iter1 {parts['iter1_ms']:.3f} ms, "
+          f"iter2 {parts['iter2_ms']:.3f} ms, one iteration (iter2 - iter1) "
+          f"{parts['per_iter_ms']:.3f} ms, full {parts['full_ms']:.3f} ms "
+          f"({parts['iterations'][0]}-{parts['iterations'][1]} iterations "
+          f"per scenario)")
+    return ok, parts
+
+
+def run_calibration(tag):
+    """The calibration slice as its user runs it: the probes of
+    ``diag.mono_calib`` (with the shared-memory probe), the nine of
+    ``diag.mono_probe`` and the four parts of ``diag.mono_parts``, with
+    the launch counts set to 0 just before and read just after. Gates:
+    every probe function launched, the parts launched ``mono_ipm``, 48 and
+    96 KB of shared memory granted. Returns (failed, probe launches,
+    mono_ipm launches, {probe: measures}, {bytes: (ok, error, sum)})."""
+    from scpp_tpu_torch import kernels
+    from scpp_tpu_torch.diag import calib, mono_calib, mono_parts, mono_probe
+    kernels.reset_launches()
+    measures, smem = mono_calib.run()
+    for which in calib.PROBE_NAMES:
+        measures[which] = mono_probe.run(which)
+    for part in ("init", "iter1", "iter2", "full"):
+        mono_parts.run(part)
+    torch.cuda.synchronize()
+    launches = {fn: kernels.launches[f"calib_{fn}"]
+                for fn in calib.FUNCTIONS}
+    mono = kernels.launches["mono_ipm"]
+    failed = [f"{fn}: no launch" for fn, c in launches.items() if not c]
+    if not mono:
+        failed.append("mono_parts launched no mono_ipm")
+    for nbytes in calib.SMEM_SIZES[:2]:
+        if not smem[nbytes][0]:
+            failed.append(f"{nbytes} B of shared memory refused")
+    expect = {calib.SMEM_SIZES[2]: True, calib.SMEM_SIZES[3]: False}
+    for nbytes, want in expect.items():
+        print(f"calibration {tag}: shared memory {nbytes} B "
+              f"{'granted' if smem[nbytes][0] else 'refused'}; as documented "
+              f"for Hopper (227 KB a block): {smem[nbytes][0] == want}")
+    return failed, launches, mono, measures, smem
+
+
+def probe_entries(launches, measures, max_err, smem_host_ms, smem_ms,
+                  smem_plain_ms, smem_err):
+    """One kernels-line entry per probe function: the numbers of its
+    first probe (in the order of calib.PROBES) at the top, every probe's
+    under ``probes``, with the names of ``calib.measure``: ``ms`` and
+    ``library_ms`` are device times (the launches replayed in a CUDA
+    graph, as soc_project's); ``host_ms`` and ``library_host_ms`` the best
+    of 5 by CUDA events around a call from the host, as the reference
+    timed its probes."""
+    from scpp_tpu_torch.diag import calib
+    keys = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_host_ms", "steps")
+    entries = []
+    for fn in calib.FUNCTIONS:
+        if fn == "smem_probe":
+            top = dict(ms=smem_ms, host_ms=smem_host_ms,
+                       plain_ms=smem_plain_ms,
+                       bound_ms=4 / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+                       library_ms=None, library_host_ms=None,
+                       probe="227 KB",
+                       library="no PyTorch call places a tensor in shared "
+                               "memory")
+            probes = {}
+        else:
+            probe_names = [k for k, p in calib.PROBES.items() if p.fn == fn]
+            probes = {k: {key: measures[k][key] for key in keys}
+                      for k in probe_names}
+            top = dict(probes[probe_names[0]], probe=probe_names[0],
+                       library=measures[probe_names[0]]["library"])
+        entries.append(dict(
+            name=f"calib_{fn}", route="cuda",
+            source="scpp_tpu_torch/csrc/calib.cu",
+            replaces=calib.REPLACES[fn], launches=launches[fn],
+            max_abs_err=smem_err if fn == "smem_probe" else max_err[fn],
+            **top, probes=probes))
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1102,6 +1287,38 @@ def main():
     if not ok_mpc:
         return 1
 
+    # ---- the calibration probes and kernel 1's parts ----
+    # The probe kernels are held against their plain versions, kernel 1's
+    # parts against theirs on the main path's programs (launches not
+    # counted); then the calibration scripts run, with the counts set to
+    # 0 just before and read just after.
+    from scpp_tpu_torch.diag import calib
+    t_cal = time.perf_counter()
+    print(f"kernel vs plain {tag}: the calibration probes at their shapes, "
+          f"{PROBE_STEPS} steps; mono_ipm's parts on the step-0 subproblems")
+    ok_probe, probe_err = check_probe_kernels()
+    ok_parts, parts = check_mono_parts(tag, statics, prog64, prog32)
+    failed, probe_launches, parts_launches, probe_measures, smem = \
+        run_calibration(tag)
+    big = calib.SMEM_SIZES[2]
+    smem_host_ms = cuda_ms(lambda: calib.smem_probe(big, check=False), 20)
+    smem_ms = calib.graph_ms(lambda: calib.smem_probe(big, check=False))
+    smem_plain_ms = cuda_ms(lambda: calib.smem_probe_plain(big), 20)
+    smem_err = abs(smem[big][2] - float(calib.smem_probe_plain(big)))
+    print(f"kernel time {tag}: smem_probe {big} B {smem_host_ms:.4f} ms per "
+          f"launch from the host, {smem_ms:.4f} ms on the device "
+          f"(CUDA graph); plain (a device-memory buffer) "
+          f"{smem_plain_ms:.4f} ms")
+    build_note = (f", calib.cu nvcc {report['calib'][0]:.1f} s in parallel "
+                  f"with the other sources" if "calib" in report else "")
+    print(f"calibration {tag}: phase {time.perf_counter() - t_cal:.1f} s"
+          + build_note)
+    if failed:
+        print("calibration: FAILED: " + "; ".join(failed), file=sys.stderr)
+    if not (ok_probe and ok_parts) or failed:
+        return 1
+    measures["mono_ipm"].update(parts=parts, parts_launches=parts_launches)
+
     sources = {"mono_ipm": ("scpp_tpu_torch/csrc/mono_ipm.cu",
                             "scpp_tpu/solver/ipm_mono.py:385"),
                "disc_mono": ("scpp_tpu_torch/csrc/disc_mono.cu",
@@ -1120,7 +1337,9 @@ def main():
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=src, replaces=rep,
         launches=launches[name], **measures[name])
-        for name, (src, rep) in sources.items()]}))
+        for name, (src, rep) in sources.items()] + probe_entries(
+        probe_launches, probe_measures, probe_err, smem_host_ms, smem_ms,
+        smem_plain_ms, smem_err)}))
     print(dev)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

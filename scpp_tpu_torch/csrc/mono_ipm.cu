@@ -33,6 +33,13 @@
 // Iteration count: diag[:, 1] counts the iterations of each scenario on
 // its own (the JAX kernel counts per sub-batch of MONO_BSUB scenarios).
 //
+// `part` isolates a piece of the solve, as the reference's hook does:
+// -1 the whole solve, -2 the initialization alone (the starting point and
+// a zero diag), N >= 0 exactly N iterations whatever `iters` says. A
+// scenario that is done stops early in every case: its iterate is frozen
+// and its best-iterate tracking would keep the same point, so the outputs
+// are those of the reference, which keeps calling the body.
+//
 // Interface: a plain C function, loaded with ctypes; it launches on the
 // given stream, allocates nothing, and returns the cudaError_t of the
 // launch (or cudaErrorInvalidValue for arguments it does not take).
@@ -91,15 +98,16 @@ extern "C" long long mono_ipm_workspace_elems(int K, int w, int me, int mc) {
 }
 
 // in: AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal, warm_x, warm_y, warm_z
-// out: x, y, s, z, diag (see _solve_block for the shapes)
+// out: x, y, s, z, diag (see _solve_block for the shapes); part: see above
 extern "C" int mono_ipm_launch(int elem_bytes, void* stream, int B, int K,
                                int w, int me, int l, int S,
                                const int* soc_sizes, int iters,
-                               int refine_steps, int track_best,
+                               int refine_steps, int track_best, int part,
                                double eps_reg, double rho, double eps_feas,
                                double step_frac, double warm_kappa,
                                void** in, void** out, void* work) {
-  if (B < 1 || K < 2 || w < 1 || me < 1 || S < 0 || S > mono::kMaxSoc)
+  if (B < 1 || K < 2 || w < 1 || me < 1 || S < 0 || S > mono::kMaxSoc ||
+      part < -2)
     return (int)cudaErrorInvalidValue;
   mono::Dims dims;
   dims.K = K; dims.w = w; dims.me = me; dims.l = l; dims.S = S;
@@ -114,6 +122,7 @@ extern "C" int mono_ipm_launch(int elem_bytes, void* stream, int B, int K,
   dims.iters = iters;
   dims.refine_steps = refine_steps;
   dims.track_best = track_best;
+  dims.part = part;
   dims.eps_reg = eps_reg;
   dims.rho = rho;
   dims.eps_feas = eps_feas;

@@ -25,6 +25,7 @@ struct Dims {
   int soc_off[kMaxSoc];
   int soc_q[kMaxSoc];
   int iters, refine_steps, track_best;
+  int part;  // -1 whole solve, -2 initialization only, N >= 0 iterations
   double eps_reg, rho, eps_feas, step_frac, warm_kappa;
 };
 
@@ -687,14 +688,23 @@ struct Solver {
       for (int i = tid; i < nc; i += nt) z[i] += shift * e_slot(i % mc);
       sync();
     }
+    if (P.part == -2) {
+      copy(x, ox, nw);
+      copy(y, oy, ne);
+      copy(s, os, nc);
+      copy(z, oz, nc);
+      if (tid == 0) odiag[0] = odiag[1] = odiag[2] = odiag[3] = 0;
+      return;
+    }
 
     const bool track = P.track_best != 0;
     T bscore = T(INFINITY);
     const T nu_deg = T(K * (l + S) > 1 ? K * (l + S) : 1);
     const T eps_feas = T(P.eps_feas);
+    const int max_it = P.part >= 0 ? P.part : P.iters;
     int it = 0;
     bool done = false;
-    while (it < P.iters && !done) {
+    while (it < max_it && !done) {
       const T score = residuals(x, y, s, z, scal);
       const T mu = gap / nu_deg;
       nt_scaling(s, z);

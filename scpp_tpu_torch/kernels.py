@@ -14,7 +14,9 @@ single-right-hand-side KKT solve of the unfused staged IPM, which on the
 card must equal the ``cr_solve`` launches; ``soc_projection`` is one
 projection of a batch's SOC blocks by the first-order conic solver
 (``solver/scs.py``), which on the card must equal the ``soc_project``
-launches.
+launches. ``launches["calib_<function>"]`` counts the launches of each
+calibration probe function (``diag/calib.py``), one key per name of
+``CALIB_FUNCTIONS``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import time
 from pathlib import Path
 
 __all__ = ["build", "load", "launches", "solver_calls", "reset_launches",
-           "NVCC_FLAGS"]
+           "CALIB_FUNCTIONS", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -36,8 +38,12 @@ _BUILD = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+CALIB_FUNCTIONS = ("ew", "chol_sweep", "bmm", "mm2d", "matvec", "rank1",
+                   "chol8flat", "transpose", "reshape88", "slice_mix",
+                   "smem_probe")
 launches = {"mono_ipm": 0, "disc_mono": 0, "resim_mono": 0, "cr_solve": 0,
-            "soc_project": 0}
+            "soc_project": 0,
+            **{f"calib_{fn}": 0 for fn in CALIB_FUNCTIONS}}
 solver_calls = {"raw_kkt_solve": 0, "soc_projection": 0}
 _libs = {}
 

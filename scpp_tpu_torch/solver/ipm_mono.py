@@ -12,6 +12,13 @@ on a CPU tensor it runs ``_solve_block``, the kernel's plain version.
 Per-scenario iteration counts: ``diag[:, 0, 1]`` counts the iterations
 of each scenario on its own, in the kernel and in ``_solve_block`` alike
 (the JAX kernel counts per sub-batch of ``MONO_BSUB`` scenarios).
+
+``part`` isolates a piece of the solve, as the reference's hook does
+(``scpp_tpu_torch/diag/mono_parts.py`` times them): ``"init"`` returns
+the starting point and a zero diag before any iteration; ``"iter<N>"``
+runs the iteration exactly N times, whatever ``settings.iters`` and the
+all-done test say (done scenarios stay frozen by the masks); anything
+else is the whole solve.
 """
 
 from __future__ import annotations
@@ -52,14 +59,29 @@ def mono_supported(prog: StagedProgram, settings: IPMSettings) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def part_code(part: str) -> int:
+    """The kernel's encoding of ``part``: -2 for ``"init"``, N >= 0 for
+    ``"iter<N>"``, -1 for the whole solve."""
+    if part == "init":
+        return -2
+    if part.startswith("iter"):
+        n = int(part[4:])
+        if n < 0:
+            raise ValueError(f"part {part!r}: the iteration count is negative")
+        return n
+    return -1
+
+
 def _solve_block(statics, AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal,
-                 warm_x, warm_y, warm_z):
-    """The complete IPM solve of a batch of equilibrated programs.
+                 warm_x, warm_y, warm_z, part="full"):
+    """The complete IPM solve of a batch of equilibrated programs, or the
+    piece of it that ``part`` names (see the module docstring).
 
     statics: (K, w, me, l, soc_sizes, settings); AT/GT are the transposed
     constraint blocks (B, K, 2w, me) / (B, K, 2w, mc); ``scal`` (B, 1, 4)
     = [pres_fac, dres_fac, c_scale * b_scale, warm_ok]. Returns x, y, s,
     z and diag (B, 1, 4) = [score, iterations, 0, 0]."""
+    code = part_code(part)
     K, w, me, l, soc_sizes, st = statics
     B = AT.shape[0]
     f = dict(dtype=AT.dtype, device=AT.device)
@@ -163,6 +185,8 @@ def _solve_block(statics, AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal,
     shift_d = torch.where(warm_ok, torch.clamp_min(t_d + kappa, 0.0),
                           shift_d)
     z0 = z0c + shift_d[:, :, None] * e_st
+    if code == -2:
+        return x0, y0, s0, z0, torch.zeros((B, 1, 4), **f)
 
     def residuals_and_score(x, y, s, z):
         rx = c + AG_rmv(y, z)
@@ -189,8 +213,8 @@ def _solve_block(statics, AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal,
     bscore = torch.full((B, 1), float("inf"), **f)
     done = torch.zeros((B, 1), dtype=torch.bool, device=AT.device)
     iters = torch.zeros((B, 1), **f)
-    for _ in range(st.iters):
-        if bool(done.all()):
+    for _ in range(code if code >= 0 else st.iters):
+        if code < 0 and bool(done.all()):
             break
         active = ~done
         iters = iters + active.to(iters.dtype)
@@ -283,15 +307,16 @@ def _load_lib():
         lib.mono_ipm_workspace_elems.restype = ctypes.c_longlong
         lib.mono_ipm_launch.argtypes = (
             [c_int, c_void_p] + [c_int] * 6 + [ctypes.POINTER(c_int)]
-            + [c_int] * 3 + [c_double] * 5
+            + [c_int] * 4 + [c_double] * 5
             + [ctypes.POINTER(c_void_p), ctypes.POINTER(c_void_p), c_void_p])
         lib.mono_ipm_launch.restype = c_int
     return lib
 
 
-def _mono_cuda(statics, *ins):
+def _mono_cuda(statics, *ins, part="full"):
     """Launch csrc/mono_ipm.cu on the current stream; raises on anything
     it does not take or on a failed launch."""
+    code = part_code(part)
     K, w, me, l, soc_sizes, st = statics
     mc = l + sum(soc_sizes)
     AT = ins[0]
@@ -319,21 +344,22 @@ def _mono_cuda(statics, *ins):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mono_ipm_launch(
             dtype.itemsize, stream, B, K, w, me, l, len(soc_sizes), soc,
-            st.iters, st.refine_steps, int(st.mono_track_best), st.eps_reg,
-            st.rho_lift, st.eps_feas, st.step_frac, st.warm_kappa,
-            in_ptrs, out_ptrs, work.data_ptr())
+            st.iters, st.refine_steps, int(st.mono_track_best), code,
+            st.eps_reg, st.rho_lift, st.eps_feas, st.step_frac,
+            st.warm_kappa, in_ptrs, out_ptrs, work.data_ptr())
     if err != 0:
         raise RuntimeError(f"mono_ipm kernel launch failed: CUDA error {err}")
     kernels.launches["mono_ipm"] += 1
     return tuple(outs)
 
 
-def mono_solve(statics, *ins):
-    """The monolithic solve on ``_prep``'s 12 inputs: the CUDA kernel for
-    tensors on the card, the plain ``_solve_block`` for CPU tensors."""
+def mono_solve(statics, *ins, part="full"):
+    """The monolithic solve on ``_prep``'s 12 inputs, or the piece of it
+    that ``part`` names: the CUDA kernel for tensors on the card, the
+    plain ``_solve_block`` for CPU tensors."""
     if ins[0].is_cuda:
-        return _mono_cuda(statics, *ins)
-    return _solve_block(statics, *ins)
+        return _mono_cuda(statics, *ins, part=part)
+    return _solve_block(statics, *ins, part=part)
 
 
 # ---------------------------------------------------------------------------

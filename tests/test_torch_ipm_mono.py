@@ -185,6 +185,74 @@ def test_warm_solve_matches_reference(i):
     check_against_reference(warm_j[i], warm_t, i)
 
 
+# The parts held against the reference: its trace and compile cost
+# seconds a loop body (its ``iterN`` unrolls N bodies), so ``iter2`` is
+# left to the host-built kernel body's test in test_torch_mono_kernel.py,
+# against this port's plain ``iter2``; the whole loop is held against
+# the reference's by the solve tests above.
+PARTS = ("init", "iter1")
+
+
+@functools.lru_cache(maxsize=None)
+def parts_solved():
+    """The cold batch of the three seeds prepared by the port's ``_prep``,
+    and the reference's ``_solve_block`` at each part of PARTS on those
+    inputs, in one compile (a part is static)."""
+    prog = port_program([jax_program(*_random_arrays(s)) for s in SEEDS])
+    st = convert.ipm_settings(SET)
+    B = len(SEEDS)
+    f = dict(dtype=torch.float64)
+    ins, _ = ipm_mono._prep(
+        prog, st, torch.zeros((B, K, W), **f), torch.zeros((B, K, ME), **f),
+        torch.zeros((B, K, MC), **f), torch.zeros(B, dtype=torch.bool))
+    ref = jax.jit(lambda *a: {p: j_mono._solve_block(
+        (K, W, ME, L, SOCS, SET), *a, part=p) for p in PARTS})(
+        *[jnp.asarray(t.numpy()) for t in ins])
+    return ins, {p: [np.asarray(a) for a in ref[p]] for p in PARTS}
+
+
+@pytest.mark.parametrize("part", PARTS)
+def test_solve_block_part_matches_reference(part):
+    """The port's ``part`` hook against the reference's, at this file's
+    tolerances. The reference writes N as every scenario's count after
+    ``iterN``; the port counts per scenario (ROADMAP section 3, item 7):
+    none of these scenarios is done after one iteration, so every count
+    is N here (0 after ``init``, whose diag is zero in both)."""
+    ins, ref = parts_solved()
+    got = ipm_mono.mono_solve((K, W, ME, L, SOCS, convert.ipm_settings(SET)),
+                              *ins, part=part)
+    for name, a, b in zip("xysz", got[:4], ref[part][:4]):
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-6,
+                                   err_msg=name)
+    np.testing.assert_allclose(got[4][:, 0, 0].numpy(), ref[part][4][:, 0, 0],
+                               rtol=1e-3, atol=1e-12)
+    np.testing.assert_array_equal(got[4][:, 0, 1].numpy(),
+                                  ref[part][4][:, 0, 1])
+    if part == "init":
+        assert not got[4].any() and not ref[part][4].any()
+
+
+def test_solve_block_full_part_is_the_whole_solve():
+    """Any other part, ``"full"`` or the reference docstring's
+    ``"while2"``, is the whole solve that the reference comparisons above
+    hold (the plain version and the kernel branch on ``part_code`` only);
+    ``iterN`` runs N iterations whatever ``settings.iters`` says."""
+    ins, _ = parts_solved()
+    st = convert.ipm_settings(SET)
+    statics = (K, W, ME, L, SOCS, st)
+    whole = ipm_mono._solve_block(statics, *ins)
+    got = ipm_mono._solve_block(statics, *ins, part="full")
+    assert all(torch.equal(a, b) for a, b in zip(got, whole))
+    assert ipm_mono.part_code("while2") == ipm_mono.part_code("full") == -1
+    capped = ipm_mono._solve_block((K, W, ME, L, SOCS, st.replace(iters=1)),
+                                   *ins, part="iter2")
+    two = ipm_mono._solve_block(statics, *ins, part="iter2")
+    assert all(torch.equal(a, b) for a, b in zip(capped, two))
+    np.testing.assert_array_equal(capped[4][:, 0, 1].numpy(), [2.0] * 3)
+    with pytest.raises(ValueError):
+        ipm_mono._solve_block(statics, *ins, part="iter-1")
+
+
 @pytest.mark.parametrize("seed,broken", [
     (5, ()), (7, (7,)), (7, (15,)), (5, (20,)), (5, (12,)), (5, (3, 19))],
     ids=lambda v: str(v) if isinstance(v, int) else

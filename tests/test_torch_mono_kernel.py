@@ -14,6 +14,7 @@ that has only the port's dependencies:
 """
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -41,7 +42,7 @@ HARNESS = r"""
 
 template <typename T>
 int run_blocks(int nthreads, int B, int K, int w, int me, int l, int S,
-               const int* socs, int iters, int refine, int track,
+               const int* socs, int iters, int refine, int track, int part,
                double eps_reg, double rho, double eps_feas, double step_frac,
                double kappa, T** in, T** out) {
   mono::Dims d;
@@ -51,7 +52,7 @@ int run_blocks(int nthreads, int B, int K, int w, int me, int l, int S,
     d.soc_off[i] = off; d.soc_q[i] = socs[i]; off += socs[i];
   }
   d.mc = off; d.Wp = w + me; d.iters = iters; d.refine_steps = refine;
-  d.track_best = track; d.eps_reg = eps_reg; d.rho = rho;
+  d.track_best = track; d.part = part; d.eps_reg = eps_reg; d.rho = rho;
   d.eps_feas = eps_feas; d.step_frac = step_frac; d.warm_kappa = kappa;
   const long long nw = (long long)K * w, ne = (long long)K * me,
                   nc = (long long)K * d.mc;
@@ -82,12 +83,12 @@ int run_blocks(int nthreads, int B, int K, int w, int me, int l, int S,
 #define HOST_RUN(name, T)                                                  \
   extern "C" int name(int nthreads, int B, int K, int w, int me, int l,    \
                       int S, const int* socs, int iters, int refine,       \
-                      int track, double eps_reg, double rho,               \
+                      int track, int part, double eps_reg, double rho,     \
                       double eps_feas, double step_frac, double kappa,     \
                       T** in, T** out) {                                   \
     return run_blocks<T>(nthreads, B, K, w, me, l, S, socs, iters, refine, \
-                         track, eps_reg, rho, eps_feas, step_frac, kappa,  \
-                         in, out);                                         \
+                         track, part, eps_reg, rho, eps_feas, step_frac,   \
+                         kappa, in, out);                                  \
   }
 #ifdef HOST_F32
 HOST_RUN(host_run_f32, float)
@@ -154,7 +155,7 @@ def host_lib(tmp_path_factory):
     for fn, c_t in ((so.host_run, ctypes.c_double),
                     (so.host_run_f32, ctypes.c_float)):
         fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
-                       + [ctypes.c_int] * 3 + [ctypes.c_double] * 5
+                       + [ctypes.c_int] * 4 + [ctypes.c_double] * 5
                        + [ctypes.POINTER(ctypes.POINTER(c_t))] * 2)
     P = ctypes.POINTER(ctypes.c_double)
     so.host_chol.argtypes = [ctypes.c_int] * 3 + [P] * 3
@@ -174,7 +175,7 @@ def breakdown_block(w, me, broken, seed=5):
     return M
 
 
-def host_solve(lib, statics, ins, nthreads):
+def host_solve(lib, statics, ins, nthreads, part="full"):
     K, w, me, l, socs, st = statics
     mc = l + sum(socs)
     B = ins[0].shape[0]
@@ -185,7 +186,8 @@ def host_solve(lib, statics, ins, nthreads):
     P = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
     (lib.host_run_f32 if f32 else lib.host_run)(nthreads, B, K, w, me, l, len(socs),
                  (ctypes.c_int * len(socs))(*socs), st.iters,
-                 st.refine_steps, int(st.mono_track_best), st.eps_reg,
+                 st.refine_steps, int(st.mono_track_best),
+                 ipm_mono.part_code(part), st.eps_reg,
                  st.rho_lift, st.eps_feas, st.step_frac, st.warm_kappa,
                  (P * 12)(*[a.ctypes.data_as(P) for a in ins]),
                  (P * 5)(*[a.ctypes.data_as(P) for a in outs]))
@@ -245,6 +247,38 @@ def test_kernel_body_matches_plain(host_lib, case):
                                   ref[4][:, 0, 1].numpy())
     np.testing.assert_allclose(got[4][:, 0, 0].numpy(),
                                ref[4][:, 0, 0].numpy(), rtol=1e-6)
+
+
+@functools.lru_cache(maxsize=None)
+def capped_inputs():
+    """The cold programs of the parts test, with ``settings.iters`` 1."""
+    return rocketquat_inputs(FLAGSHIP.replace(iters=1), warm=False)
+
+
+@pytest.mark.parametrize("part", ["init", "iter1", "iter2"])
+def test_kernel_body_parts_match_plain(host_lib, part):
+    """The ``part`` hook of the kernel body against the plain version's,
+    on the cold K=5 programs with 8 threads, float64 to 1e-6 relative as
+    above: the starting point and a zero diag (init), exactly N
+    iterations with the per-scenario count (iterN, past the settings'
+    cap: iters=1 here). The whole solve, part code -1, is what
+    ``host_solve`` runs by default in the tests above."""
+    statics, ins = capped_inputs()
+    ref = ipm_mono._solve_block(statics, *ins, part=part)
+    got = host_solve(host_lib, statics, ins, 8, part)
+    for a, b in zip(got[:4], ref[:4]):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-6 * (1 + float(
+            b.abs().max()))
+    np.testing.assert_array_equal(got[4][:, 0, 1].numpy(),
+                                  ref[4][:, 0, 1].numpy())
+    np.testing.assert_allclose(got[4][:, 0, 0].numpy(),
+                               ref[4][:, 0, 0].numpy(), rtol=1e-6)
+    if part == "init":
+        assert not got[4].any()
+    else:
+        np.testing.assert_array_equal(got[4][:, 0, 1].numpy(),
+                                      [int(part[4:])] * 2)
 
 
 # The main path's dtype: the kernel in float32 must land within this of
@@ -329,3 +363,27 @@ def test_kernel_matches_plain_on_card(dtype):
     dist = float32_distance(got, ref64)
     print(f"float32 kernel distance from the float64 plain solution {dist:.2e}")
     assert dist <= F32_CEILING
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["init", "iter1", "iter2"])
+def test_kernel_parts_match_plain_on_card(part):
+    """The ``part`` launch against the plain version's part in float64
+    (1e-6, the same counts), and ``part="full"`` bit for bit the default
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from scpp_tpu_torch import kernels
+    statics, ins = rocketquat_inputs(FLAGSHIP, warm=False)
+    ins = [t.to("cuda") for t in ins]
+    ref = ipm_mono._solve_block(statics, *ins, part=part)
+    before = kernels.launches["mono_ipm"]
+    got = ipm_mono.mono_solve(statics, *ins, part=part)
+    assert kernels.launches["mono_ipm"] == before + 1
+    for a, b in zip(got[:4], ref[:4]):
+        assert float((a - b).abs().max()) <= 1e-6 * (1 + float(
+            b.abs().max()))
+    assert torch.equal(got[4][:, 0, 1], ref[4][:, 0, 1])
+    default = ipm_mono.mono_solve(statics, *ins)
+    full = ipm_mono.mono_solve(statics, *ins, part="full")
+    assert all(torch.equal(a, b) for a, b in zip(default, full))
