@@ -19,7 +19,8 @@ Rocket2D receding-horizon MPC on bench.py's MPC parameters
 projection is one ``soc_project`` launch. Then the calibration slice:
 every probe kernel of ``csrc/calib.cu`` against its plain version, the
 monolithic IPM's ``part`` hook (init, one and two iterations, the whole
-solve) on the main path's programs, and the calibration scripts
+solve) and its phase split by the kernel's clock counters on the main
+path's programs, and the calibration scripts
 (``scpp_tpu_torch.diag.mono_calib``, ``mono_probe``, ``mono_parts``) with
 their launch counts. Then one JSON line of kernel measurements, the
 card's name and power limit, and the result line. Any
@@ -38,11 +39,14 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+# the flagship configuration and bench.py's 64 scenarios
+from scpp_tpu_torch.diag.scvx_steps import (B, K, dispersed_params,
+                                            flagship_config)
+
 # the reference pins full-fp32 products: no TF32 for matmuls or convolutions
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-B, K = 64, 30
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores, 700 W
 F32_CEILING = 1e-2                  # see "kernel vs plain" in main()
@@ -93,26 +97,6 @@ def card():
     return out[0].strip()
 
 
-def flagship_config():
-    from scpp_tpu_torch.configs.algorithms import SCvxConfig
-    from scpp_tpu_torch.solver.ipm import IPMSettings
-    return SCvxConfig(
-        K=K, max_iterations=30, solve_budget=45, change_threshold=1e-3,
-        nondimensionalize=True, substeps=6, sim_substeps=8,
-        solver=IPMSettings(iters=10, eps_reg=1e-4, eps_feas=1e-4,
-                           refine_steps=0, monolith=True))
-
-
-def dispersed_params(dtype):
-    """bench.py's 64 scenarios: the stock params with its dispersed
-    initial states (stored in the port, see bench_initial_states)."""
-    from scpp_tpu_torch.models import RocketQuat
-    from scpp_tpu_torch.models.base import batch_params
-    from scpp_tpu_torch.parallel.scenarios import bench_initial_states
-    pb = batch_params(RocketQuat.default_params(dtype), B)
-    return pb.replace(x_init=bench_initial_states(dtype))
-
-
 def flagship_programs(cfg, dtype):
     """The step-0 subproblems of the main path, built by the port, with
     the trajectories and parameter vectors they were built around."""
@@ -145,19 +129,39 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def mono_work(prog, settings, iters, cold):
+def mono_work(prog, settings, iters, cold, cyclic=False):
     """Bytes the kernel must move (inputs once, outputs once) and the
-    floating-point operations its algorithm does for these inputs, with
-    each scenario's own iteration count."""
+    floating-point operations of the least work for these inputs, with
+    each scenario's own iteration count: the KKT factor and solves as the
+    sequential stage recursion (one Wp x Wp block factor per stage). The
+    bound uses this count. ``cyclic`` counts the cyclic reduction that
+    the kernel runs instead (csrc/mono_ipm_body.cuh): more products, in
+    6 chained steps instead of 30 at K=30."""
     w, me, mc = prog.w, prog.me, prog.mc
     Wp = w + me
     esz = prog.A_eq.element_size()
     in_elems = K * (2 * w * (me + mc) + 3 * me + 3 * mc + 3 * w) + 4
     out_elems = K * (w + me + 2 * mc) + 4
     nbytes = B * (in_elems + out_elems) * esz
-    fma_factor = K * (3 * w * w * (mc + me) + w * w * Wp + Wp ** 3 / 3
-                      + Wp * Wp * w / 2)
-    fma_raw = K * (Wp * Wp + 2 * Wp * w)
+    fma_gram = K * 3 * w * w * (mc + me)
+    if cyclic:
+        from scpp_tpu_torch.solver.cr_fused import cr_work
+        from scpp_tpu_torch.solver.staged_kkt import level_sizes
+        # per level: each odd block's factor and inverse (Wp^3 / 3), its R
+        # and Q (O's last me rows are zero: 2 w Wp^2), the next level's
+        # blocks (lower triangles of R'SR and Q'SQ, and Q'SR's w rows);
+        # the root's factor
+        fma_factor = fma_gram + Wp ** 3 / 3
+        for n, o in level_sizes(K):
+            ne = n - o
+            fma_factor += o * (Wp ** 3 / 3 + 2 * w * Wp * Wp)
+            fma_factor += (o * Wp * (Wp + 1) / 2 + (ne - 1) * w * (w + 1) / 2
+                           + (ne - 1) * w * Wp) * Wp
+        fma_raw = cr_work(1, K, Wp, esz)[1] / 2
+    else:
+        fma_factor = fma_gram + K * (w * w * Wp + Wp ** 3 / 3
+                                     + Wp * Wp * w / 2)
+        fma_raw = K * (Wp * Wp + 2 * Wp * w)
     fma_a, fma_g = K * me * 2 * w, K * mc * 2 * w
     fma_rmv = K * w * 2 * (me + mc)
     r = settings.refine_steps
@@ -1004,7 +1008,10 @@ def check_mono_parts(tag, statics, prog64, prog32):
     ``part="full"`` bit for bit alike in float32 (both pass part code -1:
     a check of determinism; that the default launch is the parent's rests
     on the main path's gates and its time), and the time of init, iter1,
-    iter2 and full by CUDA events. Returns (ok, parts)."""
+    iter2 and full by CUDA events, and the whole solve's phase split by
+    the kernel's counters (``diag.mono_parts.profile``). Returns (ok,
+    parts)."""
+    from scpp_tpu_torch.diag import mono_parts
     from scpp_tpu_torch.solver import ipm_mono
     st = statics[-1]
     ok = True
@@ -1058,6 +1065,22 @@ def check_mono_parts(tag, statics, prog64, prog32):
           f"{parts['per_iter_ms']:.3f} ms, full {parts['full_ms']:.3f} ms "
           f"({parts['iterations'][0]}-{parts['iterations'][1]} iterations "
           f"per scenario)")
+    # the whole solve with the kernel's phase counters on (gate: they move
+    # the launch by less than 2%, and the phases sum to the blocks' run)
+    split, ms_off, ms_on = mono_parts.profile(statics, ins32)
+    mono_parts.print_split(f"kernel time {tag}: mono_ipm float32 B={B} "
+                           f"cold", split, ms_off, ms_on)
+    cost = ms_on / ms_off - 1
+    covered = split["sum"][1] / split["block"][1] - 1
+    good = abs(cost) < 0.02 and abs(covered) <= 0.01
+    print(f"  phase counters: launch {100 * cost:+.2f}% (limit 2%), phases "
+          f"sum vs the slowest block's run {100 * covered:+.2f}% -> "
+          f"{'ok' if good else 'FAIL'}")
+    ok &= good
+    parts["phases_ms"] = {name: split[name][0] for name in ipm_mono.PHASES}
+    parts["phases_ms_per_iter"] = {name: split[name][1] for name in
+                                   ipm_mono.PHASES if name != "init"}
+    parts["counters_off_on_ms"] = [ms_off, ms_on]
     return ok, parts
 
 
@@ -1212,6 +1235,7 @@ def main():
                 lambda: ipm_mono._solve_block(statics, *ins32), 2)
     nbytes, flops = mono_work(prog32, st, iters, cold=True)
     b_ms, b_by = bound(nbytes, flops)
+    _, cr_flops = mono_work(prog32, st, iters, cold=True, cyclic=True)
     measures = {"mono_ipm": dict(max_abs_err=max_err, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by)}
@@ -1219,7 +1243,10 @@ def main():
           f"(B={B} cold, IPM iterations per scenario {min(iters):.0f}-"
           f"{max(iters):.0f}), plain {plain_ms:.1f} ms; bound "
           f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.2f} GFLOP)")
+          f"{flops / 1e9:.2f} GFLOP, the sequential recursion's count); "
+          f"the cyclic reduction the kernel runs does {cr_flops / 1e9:.2f} "
+          f"GFLOP ({cr_flops / H100_FP32_FLOPS * 1e3:.4f} ms at the fp32 "
+          f"peak)")
     print(f"kernel vs plain {tag}: disc_mono and resim_mono B={B} K={K} "
           f"FOH dopri5, on the step-0 trajectories of the main path and on "
           f"those after its first (accepted) step")

@@ -4,16 +4,111 @@
 // std::thread with its own `threadIdx`, and `__syncthreads` is a barrier
 // over the threads of the block being run. A harness includes this with
 // `-include host_shim.h`, defines `threadIdx`, `blockDim` and `g_barrier`
-// once, and runs the blocks one after another.
+// once, and runs the blocks one after another. A body that uses warps
+// also needs `g_warp_barriers` and `g_warp_xch` defined, and a HostWarps
+// for each block run: one barrier and one exchange array per group of 32
+// threads (the last group may have fewer), which `__syncwarp` and the
+// shuffles use. The asynchronous copies of <cuda_pipeline_primitives.h>
+// copy at once.
 #pragma once
+#include <algorithm>
+#include <array>
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <cstddef>
+#include <cstring>
 #include <math.h>
+#include <memory>
+#include <thread>
+#include <vector>
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 extern thread_local Dim3 threadIdx;
 extern Dim3 blockDim;
 extern std::barrier<>* g_barrier;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+// A barrier for the lanes of a warp, which meet several times a matrix
+// column: it spins, yielding, where std::barrier sleeps.
+struct SpinBarrier {
+  explicit SpinBarrier(int n) : n_(n) {}
+  void arrive_and_wait() {
+    const unsigned gen = gen_.load(std::memory_order_acquire);
+    if (count_.fetch_add(1, std::memory_order_acq_rel) + 1 == n_) {
+      count_.store(0, std::memory_order_relaxed);
+      gen_.fetch_add(1, std::memory_order_acq_rel);
+    } else {
+      while (gen_.load(std::memory_order_acquire) == gen)
+        std::this_thread::yield();
+    }
+  }
+  const int n_;
+  std::atomic<int> count_{0};
+  std::atomic<unsigned> gen_{0};
+};
+extern SpinBarrier** g_warp_barriers;
+extern unsigned long long (*g_warp_xch)[2][32];
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_warp_barriers[threadIdx.x / 32]->arrive_and_wait();
+}
+// the lanes of a warp exchange values through a per-warp array, two
+// slots used in turn (one count for every type): a lane that writes the
+// next exchange cannot pass its barrier before every lane has read this
+// one
+inline int& xch_slot() {
+  thread_local int slot = 0;
+  return slot;
+}
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  int& slot = xch_slot();
+  const int wp = threadIdx.x / 32, ln = threadIdx.x % 32;
+  std::memcpy(&g_warp_xch[wp][slot][ln], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &g_warp_xch[wp][slot][ln ^ lane_mask], sizeof(T));
+  slot ^= 1;
+  return r;
+}
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return __shfl_xor_sync(0u, v, (threadIdx.x % 32) ^ src_lane);
+}
+inline int __any_sync(unsigned, int v) {
+  int any = v != 0;
+  for (int o = 16; o > 0; o >>= 1) any |= __shfl_xor_sync(0u, any, o);
+  return any;
+}
+// the warps of one block run: a harness makes one before it starts the
+// block's threads
+struct HostWarps {
+  std::vector<std::unique_ptr<SpinBarrier>> own;
+  std::vector<SpinBarrier*> ptrs;
+  std::vector<std::array<unsigned long long, 64>> xch;
+  explicit HostWarps(int nthreads) : xch((nthreads + 31) / 32) {
+    for (int t = 0; t < nthreads; t += 32) {
+      own.emplace_back(new SpinBarrier(std::min(32, nthreads - t)));
+      ptrs.push_back(own.back().get());
+    }
+    g_warp_barriers = ptrs.data();
+    g_warp_xch =
+        reinterpret_cast<unsigned long long(*)[2][32]>(xch.data()->data());
+  }
+};
+inline void __pipeline_memcpy_async(void* dst, const void* src,
+                                    std::size_t size) {
+  std::memcpy(dst, src, size);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(std::size_t) {}
+// the device's cycle counter and globaltimer: nanoseconds of a steady clock
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+inline long long wall_ns() { return clock64(); }

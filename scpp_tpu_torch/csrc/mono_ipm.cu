@@ -6,29 +6,46 @@
 // score, NT scaling, Gram/KKT assembly, signed block factorization and
 // solves, predictor and corrector, cone step lengths, masked update,
 // best-iterate tracking, early exit, final rescoring) in one launch. Its
-// plain version is `_solve_block` in scpp_tpu_torch/solver/ipm_mono.py.
+// plain version is `_solve_block` in scpp_tpu_torch/solver/ipm_mono.py,
+// which factors and solves in the same cyclic-reduction order.
 //
-// Memory plan: one thread block per scenario, looping over the IPM
-// iterations inside the block, so nothing but the inputs and outputs
-// crosses the launch. The KKT factor of one flagship scenario (K=30 stages
-// of 48 x 48 blocks, ~276 KB in fp32) is larger than a block's 227 KB of
-// shared memory, so the factor (L_k^{-1} and the coupling P_k of every
-// stage) and the iterate vectors live in a global workspace that the
-// wrapper allocates; shared memory holds the stage tiles being worked on
-// (W^{-1} G_k^T, the block D_k and its factor, P_{k-1}, the Gram blocks).
-// Cyclic reduction existed for the TPU's vector width: here the stages are
-// factored and solved by a sequential recursion, which gives the same
-// solution up to rounding.
+// Plan: one thread block of 512 threads (16 warps) per scenario, looping
+// over the IPM iterations inside the block, so nothing but the inputs and
+// outputs crosses the launch. Per iteration the KKT system is assembled
+// for all K stages at once (W^{-1} G_k^T and the Gram blocks from shared
+// tiles, stage k+1's GT, AT and scaling copied in by cp.async while stage
+// k's products run), then factored by cyclic reduction in the
+// reference's order (scpp_tpu/solver/mono_blocks.py:mono_cr_factor): K=30
+// blocks reduce 30 -> 15 -> 8 -> 4 -> 2 -> 1, 29 odd-block factors and a
+// root in 6 chained steps. Each 48 x 48 block factor (signed Cholesky in
+// 8-column panels with the 1e-30 pivot floor, then L^{-1}) runs in one
+// warp with __syncwarp() and shuffles alone (in registers for a float
+// 48 x 48 block, else in the warp's shared tile), 15 at once in float and
+// 7 in double (a 48 x 48 double tile is 20 KB; kFactorBytes); R = L^{-1}
+// O_left, Q = L^{-1} O_rt^T and the Schur updates R'SR, Q'SQ, Q'SR are
+// 4 x 4 register-tiled products over all threads. The couplings' last me
+// rows are zero at every level, so R sums over w terms, Q has w nonzero
+// columns and only the first w rows of a coupling are stored. The KKT
+// solves are kernel 4's cyclic-reduction solve (cr_solve_body.cuh) on the
+// same (K-1, 3, Wp, Wp) + root layout as cr_fused.cr_pack. The factor,
+// the level's blocks and the iterate vectors live in a global workspace
+// (1.91 MB a scenario in float: the card's 50 MB L2 holds 26
+// scenarios); shared memory holds the stage tiles, the factor tiles or
+// the solve's vectors in turn (160 KB in float, 151 KB in double).
 //
-// What bounds it: per IPM iteration and scenario, the factor does about
-// K * (3 w^2 (mc + me) + w^2 Wp + Wp^3 / 3 + Wp^2 w / 2) ~ 10 M fp32 FMAs
-// at the flagship shapes (the count chip_smoke.py:mono_work uses; plain
-// FMA loops, no TF32, no tensor cores), while the bytes it must move are
-// the ~0.5 MB of inputs once. So it is bound by operations, and in this
-// first version by the latency of the sequential column recursion (one
-// __syncthreads per Cholesky column and per stage of each sweep), not by
-// the card's FMA rate. The early exit is per scenario: a converged
-// scenario frees its SM.
+// What bounds it: the least work for the same function, the sequential
+// stage recursion, is ~11.2 M FMAs per iteration and scenario at the
+// flagship shapes (chip_smoke.py:mono_work; 0.2349 ms for the B=64 cold
+// batch at the fp32 rate), and the bytes it must move are the ~0.5 MB of
+// inputs once, so the bound is operations. Cyclic reduction does ~17.5 M
+// FMAs per iteration (mono_work(cyclic=True)) and moves per iteration
+// about 2 MB of factor and level blocks per scenario through L2 (written
+// once, read by the Schur products and by each of the two solves) plus
+// seven passes over the 0.5 MB of AT and GT. It runs far from both
+// rates: every phase is a chain of dependent shared- or global-memory
+// reads inside one block, and the per-phase clock counters (Phase,
+// diag/mono_parts.py) say which chain costs what (PERF.md, section 5).
+// The early exit is per scenario: a converged scenario frees its SM.
 //
 // Iteration count: diag[:, 1] counts the iterations of each scenario on
 // its own (the JAX kernel counts per sub-batch of MONO_BSUB scenarios).
@@ -50,34 +67,37 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr size_t kMaxSmem = 232448;   // 227 KB, a Hopper block's most
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mono_ipm_kernel(mono::Dims dims, const T* AT, const T* GT, const T* beq,
                 const T* h, const T* c, const T* deq, const T* dc,
                 const T* Est, const T* scal, const T* wx, const T* wy,
-                const T* wz, T* ox, T* oy, T* os, T* oz, T* odiag, T* work) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+                const T* wz, T* ox, T* oy, T* os, T* oz, T* odiag, T* work,
+                long long* prof) {
   const long long b = blockIdx.x;
   const int K = dims.K, w = dims.w, me = dims.me, mc = dims.mc;
   const long long nw = (long long)K * w, ne = (long long)K * me,
                   nc = (long long)K * mc;
   mono::Solver<T> solver(
-      dims, reinterpret_cast<T*>(smem_raw),
-      work + b * mono::workspace_elems(K, w, me, mc),
+      dims, work + b * mono::workspace_elems(K, w, me, mc),
       AT + b * 2 * w * ne, GT + b * 2 * w * nc, beq + b * ne, h + b * nc,
       c + b * nw, deq + b * ne, dc + b * nc, Est + b * nw);
   solver.run(scal + b * 4, wx + b * nw, wy + b * ne, wz + b * nc,
              ox + b * nw, oy + b * ne, os + b * nc, oz + b * nc,
-             odiag + b * 4);
+             odiag + b * 4, prof ? prof + b * mono::kProfSlots : nullptr);
 }
 
 template <typename T>
-int launch(const mono::Dims& dims, int B, void* stream, void** in,
-           void** out, void* work) {
-  const size_t smem = sizeof(T) * mono::smem_elems(dims.w, dims.me, dims.mc,
-                                                   kThreads);
+int launch(mono::Dims dims, int B, void* stream, void** in, void** out,
+           void* work, long long* prof) {
+  dims.nfac = mono::factor_tiles(dims.w, dims.me, kThreads, sizeof(T));
+  const size_t smem = sizeof(T) * mono::smem_elems(dims.K, dims.w, dims.me,
+                                                   dims.mc, kThreads,
+                                                   dims.nfac);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mono_ipm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -87,7 +107,7 @@ int launch(const mono::Dims& dims, int B, void* stream, void** in,
       (const T*)in[3], (const T*)in[4], (const T*)in[5], (const T*)in[6],
       (const T*)in[7], (const T*)in[8], (const T*)in[9], (const T*)in[10],
       (const T*)in[11], (T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3],
-      (T*)out[4], (T*)work);
+      (T*)out[4], (T*)work, prof);
   return (int)cudaGetLastError();
 }
 
@@ -97,15 +117,19 @@ extern "C" long long mono_ipm_workspace_elems(int K, int w, int me, int mc) {
   return mono::workspace_elems(K, w, me, mc);
 }
 
+extern "C" int mono_ipm_prof_slots() { return mono::kProfSlots; }
+
 // in: AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal, warm_x, warm_y, warm_z
-// out: x, y, s, z, diag (see _solve_block for the shapes); part: see above
+// out: x, y, s, z, diag (see _solve_block for the shapes); part: see above;
+// prof: null, or (B, kProfSlots) int64 phase counters (mono_ipm_body.cuh)
 extern "C" int mono_ipm_launch(int elem_bytes, void* stream, int B, int K,
                                int w, int me, int l, int S,
                                const int* soc_sizes, int iters,
                                int refine_steps, int track_best, int part,
                                double eps_reg, double rho, double eps_feas,
                                double step_frac, double warm_kappa,
-                               void** in, void** out, void* work) {
+                               void** in, void** out, void* work,
+                               long long* prof) {
   if (B < 1 || K < 2 || w < 1 || me < 1 || S < 0 || S > mono::kMaxSoc ||
       part < -2)
     return (int)cudaErrorInvalidValue;
@@ -128,7 +152,9 @@ extern "C" int mono_ipm_launch(int elem_bytes, void* stream, int B, int K,
   dims.eps_feas = eps_feas;
   dims.step_frac = step_frac;
   dims.warm_kappa = warm_kappa;
-  if (elem_bytes == 4) return launch<float>(dims, B, stream, in, out, work);
-  if (elem_bytes == 8) return launch<double>(dims, B, stream, in, out, work);
+  if (elem_bytes == 4)
+    return launch<float>(dims, B, stream, in, out, work, prof);
+  if (elem_bytes == 8)
+    return launch<double>(dims, B, stream, in, out, work, prof);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,17 +8,54 @@
 //   AT (K, 2w, me)  GT (K, 2w, mc)  rows of stage k act on [x_k | x_{k+1}]
 //   x (K, w)  y (K, me)  s, z (K, mc)
 //   cones per stage: [nonneg (l) | SOC q_1 | ... | SOC q_S]
-// Every loop below is block-strided over threads and every phase ends in
-// __syncthreads(); scalars of the scenario come from block reductions, so
-// all control flow is uniform across the block.
+// Every block-wide loop below is block-strided over threads and every
+// block-wide phase ends in __syncthreads(); scalars of the scenario come
+// from block reductions, so all control flow is uniform across the block.
+// The KKT factor is cyclic reduction: its block factors run one warp per
+// block, synchronised by __syncwarp() and shuffles alone (a warp of the
+// last, partial group of threads has fewer lanes). The block reductions
+// and kernel 4's solve take a thread count that is a multiple of 32 or a
+// power of two below it.
 #pragma once
 
 #include <math.h>
+
+#include "cr_solve_body.cuh"
+
+#ifdef __CUDACC__
+#include <cuda_pipeline_primitives.h>
+#endif
 
 namespace mono {
 
 constexpr int kMaxSoc = 32;
 constexpr int kPanel = 8;   // the reference's Cholesky panel width
+constexpr int kWarp = 32;
+constexpr int kTile = 4;    // register tile of the level products (4 x 4)
+// shared memory given to the block factors' tiles: 15 float tiles of a
+// 48-wide block at the flagship shapes (level 0's 15 odd blocks at
+// K=30), 7 double ones
+constexpr long long kFactorBytes = 163840;
+
+// Per-phase clock counters (optional): thread 0 reads clock64() after the
+// barrier that ends a phase and adds the cycles since the last reading to
+// that phase. The initialization (everything before the first iteration)
+// counts as one phase. The two slots after the phases hold the block's
+// whole run in clock64() cycles and in globaltimer nanoseconds, which
+// convert cycles to time.
+enum Phase {
+  kInit, kResiduals, kScaling, kAssembly, kBlockFactor, kLevelProducts,
+  kSolves, kConeStep, kRest, kPhases
+};
+constexpr int kProfSlots = kPhases + 2;
+
+#ifdef __CUDACC__
+__device__ __forceinline__ long long wall_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+#endif
 
 struct Dims {
   int K, w, me, l, S, mc, Wp;
@@ -26,6 +63,7 @@ struct Dims {
   int soc_q[kMaxSoc];
   int iters, refine_steps, track_best;
   int part;  // -1 whole solve, -2 initialization only, N >= 0 iterations
+  int nfac;  // block factors at once (one warp and one shared tile each)
   double eps_reg, rho, eps_feas, step_frac, warm_kappa;
 };
 
@@ -38,93 +76,506 @@ __device__ __forceinline__ T jmax(T a, T b) { return (a > b || a != a) ? a : b; 
 template <typename T>
 __device__ __forceinline__ T floored(T p) { return jmax(p, T(1e-30)); }
 
+// padded row strides of the staged GT / AT tiles: odd, so that the rows a
+// warp reads at one column fall in distinct banks
+__host__ __device__ inline int odd_stride(int n) { return n | 1; }
+
 // Element counts of the per-scenario global workspace and of the dynamic
 // shared memory, shared by the kernel and the host wrapper.
 __host__ __device__ inline long long workspace_elems(int K, int w, int me,
                                                      int mc) {
-  const long long Wp = w + me;
+  const long long Wp = w + me, WW = Wp * Wp;
   const long long nw = (long long)K * w, ne = (long long)K * me,
                   nc = (long long)K * mc;
-  return K * Wp * Wp            // Linv_k
-         + (K - 1) * Wp * w     // P_k (only the first w columns are nonzero)
-         + K * Wp               // forward-sweep values t_k
-         + 19 * nc + 10 * nw + 10 * ne;
+  return 2 * K * WW                 // the level's diagonal blocks, twice
+         + 2 * (K - 1) * w * Wp     // its couplings (first w rows), twice
+         + (K - 1) * 3 * WW + WW    // the factor, in cr_pack's layout
+         + 2 * K * Wp               // right-hand side and solution
+         + 20 * nc + 10 * nw + 10 * ne;
 }
 
-__host__ __device__ inline long long smem_elems(int w, int me, int mc,
-                                               int threads) {
+// Row stride of a block factor's shared tile: at least n and 4 (mod 8),
+// so that the 8 x 4 lanes of a warp's 2D update hit 32 distinct banks.
+__host__ __device__ inline int tile_stride(int n) {
+  return n + (12 - n % 8) % 8;
+}
+
+// elements of one block factor's shared tile: the block (tile_stride
+// per row), a column and a row of it, and a flag per lane
+__host__ __device__ inline long long factor_tile_elems(int n) {
+  return (long long)n * tile_stride(n) + 2 * n + kWarp;
+}
+
+// block factors that run at once with `threads` threads
+__host__ __device__ inline int factor_tiles(int w, int me, int threads,
+                                            int elem_bytes) {
+  const long long fit =
+      kFactorBytes / (factor_tile_elems(w + me) * elem_bytes);
+  const int warps = (threads + kWarp - 1) / kWarp;
+  return (int)(fit < 1 ? 1 : fit < warps ? fit : warps);
+}
+
+__host__ __device__ inline long long smem_elems(int K, int w, int me, int mc,
+                                               int threads, int nfac) {
   const long long Wp = w + me;
-  return 2LL * w * mc + 2 * Wp * Wp + Wp * w + 3LL * w * w + 4 * Wp +
-         threads;
+  const long long assemble =
+      6LL * w * odd_stride(mc) + 4LL * w * odd_stride(me) + 8LL * mc +
+      (long long)w * w;
+  const long long fac = nfac * factor_tile_elems(w + me);
+  const long long solve = cr::smem_elems(K, (int)Wp);
+  long long region = assemble > fac ? assemble : fac;
+  region = region > solve ? region : solve;
+  return region + threads;
+}
+
+// The block's dynamic shared memory. Pointers into it are derived from
+// this symbol wherever they are used (never stored in the Solver), so
+// that the compiler sees the shared address space and emits shared loads
+// and stores (LDS/STS) rather than generic ones. The host build points
+// it at the block's buffer.
+#ifdef __CUDACC__
+extern __shared__ __align__(16) unsigned char mono_smem[];
+#else
+extern unsigned char* mono_smem;
+#endif
+
+// ---- the factor's building blocks ----
+
+// One warp factors one n x n block, as the reference's signed_chol_inv
+// (scpp_tpu/solver/mono_blocks.py) does: F (its shared tile, with room
+// for factor_tile_elems(n)) gets the block, the signed Cholesky L
+// (D = L S L^T, S = +1 on the p primal columns, -1 on the dual ones) in
+// 8-column panels with every pivot floored at 1e-30, then L^{-1} in
+// place; Lout (row stride n) gets L^{-1} (zero above the diagonal) and
+// Lcopy, when given, L. Column j has t_j = max(s_j D_jj, 1e-30) and
+// divides the rows of its own panel by sqrt(t_j), the rows below it by
+// L_jj = s_j D_jj / sqrt(t_j); without a floored pivot that is the
+// ordinary factor. A factor with an entry that is not finite is NaN as a
+// whole, as the reference's panel products make it. The block is read
+// from its lower triangle. Both halves are right-looking: per column j
+// one rank-1 update of the trailing triangle (Cholesky), then per row j
+// of L^{-1} one update of the rows below (each entry's terms summed in
+// the order of the row-by-row substitution), with the lanes spread over
+// the updated entries as an 8 x 4 grid (fewer lanes: a smaller grid).
+template <typename T>
+__device__ __forceinline__ void warp_block_factor_smem(const T* Dsrc, T* F,
+                                                       T* Lout, T* Lcopy,
+                                                       int n, int p,
+                                                       int lane, int nl) {
+  const int ts = tile_stride(n);
+  T* __restrict__ Fr = F;
+  T* __restrict__ ev = F + (long long)n * ts;   // a column of L
+  T* __restrict__ xr = ev + n;                  // a row of L^{-1}
+  T* __restrict__ flag = xr + n;
+  const int gc = nl < 4 ? nl : 4, gr = nl / gc;
+  const int lr = lane / gc, lc = lane % gc;
+  for (int r = 0; r < n; ++r)
+    for (int cc = lane; cc <= r; cc += nl)
+      __pipeline_memcpy_async(Fr + r * ts + cc, Dsrc + r * n + cc, sizeof(T));
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  bool bad = false;
+  for (int j = 0; j < n; ++j) {
+    const T sg = j < p ? T(1) : T(-1);
+    const T d = sg * Fr[j * ts + j];
+    const T rt = sqrt(floored(d)), ljj = d / rt;
+    const int own = (j / kPanel + 1) * kPanel;
+    __syncwarp();
+    for (int r = j + lane; r < n; r += nl) {
+      const T e = sg * Fr[r * ts + j] / (r < own ? rt : ljj);
+      Fr[r * ts + j] = e;
+      ev[r] = e;
+      bad = bad || !isfinite(e);
+    }
+    __syncwarp();
+    // F_rc -= s e_r e_c for j < c <= r
+    for (int r = j + 1 + lr; r < n; r += gr) {
+      const T er = sg * ev[r];
+      T* f = Fr + r * ts;
+      int cc = j + 1 + lc;
+      for (; cc + gc <= r; cc += 2 * gc) {
+        const T f0 = f[cc], f1 = f[cc + gc], e0 = ev[cc], e1 = ev[cc + gc];
+        f[cc] = f0 - er * e0;
+        f[cc + gc] = f1 - er * e1;
+      }
+      if (cc <= r) f[cc] -= er * ev[cc];
+    }
+    __syncwarp();
+  }
+  flag[lane] = bad ? T(1) : T(0);
+  if (Lcopy != nullptr)
+    for (int r = 0; r < n; ++r)
+      for (int cc = lane; cc < n; cc += nl)
+        Lcopy[r * n + cc] = cc > r ? T(0) : Fr[r * ts + cc];
+  __syncwarp();
+  bool overflow = false;
+  for (int i = 0; i < nl; ++i) overflow = overflow || flag[i] != T(0);
+  // L^{-1} in place, X_jj = 1 / L_jj, X_rc = -(sum_{c <= t < r} L_rt X_tc)
+  // / L_rr: at step j row j is final once divided by L_jj, and its terms
+  // go into the rows below (the L_rj column saved first: X_rj takes its
+  // slot)
+  for (int j = 0; j < n; ++j) {
+    const T ljj = Fr[j * ts + j];
+    for (int cc = lane; cc <= j; cc += nl) {
+      const T x = cc == j ? T(1) / ljj : Fr[j * ts + cc] / ljj;
+      if (cc < j) Fr[j * ts + cc] = x;
+      xr[cc] = x;
+    }
+    for (int r = j + 1 + lane; r < n; r += nl) ev[r] = Fr[r * ts + j];
+    __syncwarp();
+    if (lane == 0) Fr[j * ts + j] = xr[j];
+    for (int r = j + 1 + lr; r < n; r += gr) {
+      const T lrj = ev[r];
+      T* f = Fr + r * ts;
+      int cc = lc;
+      for (; cc + gc < j; cc += 2 * gc) {
+        const T f0 = f[cc], f1 = f[cc + gc], x0 = xr[cc], x1 = xr[cc + gc];
+        f[cc] = f0 - lrj * x0;
+        f[cc + gc] = f1 - lrj * x1;
+      }
+      for (; cc < j; cc += gc) f[cc] -= lrj * xr[cc];
+      if (cc == j) f[j] = -(lrj * xr[j]);
+    }
+    __syncwarp();
+  }
+  for (int r = 0; r < n; ++r)
+    for (int cc = lane; cc < n; cc += nl) {
+      const T v = overflow ? T(NAN) : cc > r ? T(0) : Fr[r * ts + cc];
+      Fr[r * ts + cc] = v;
+      Lout[r * n + cc] = v;
+    }
+  __syncwarp();
+}
+
+// The same block factor with the block in registers, for n == kRegN (48,
+// the flagship's Wp) and a full warp: lane l < 24 holds rows l and 47 - l
+// (l + 1 and 48 - l entries of the lower triangle), so every lane holds
+// 49 entries and the steps exchange one column (Cholesky) or one row
+// (inverse) by shuffles, with no shared-memory round trip per entry. The
+// arithmetic is the shared-memory version's, except that a row of
+// L^{-1} is scaled by 1 / L_jj. F gets L^{-1} at its tile stride too.
+constexpr int kRegN = 48;
+
+template <typename T>
+__device__ __noinline__ void warp_block_factor_reg(const T* Dsrc, T* F,
+                                                   T* Lout, T* Lcopy, int p,
+                                                   int lane) {
+  constexpr int N = kRegN, H = kRegN / 2;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int ts = tile_stride(N);
+  const bool act = lane < H;
+  const int ra = lane, rb = N - 1 - lane;   // the lane's two rows
+  T A[H], Bv[N];
+#pragma unroll
+  for (int c = 0; c < H; ++c)
+    A[c] = act && c <= ra ? Dsrc[ra * N + c] : T(0);
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    Bv[c] = act && c <= rb ? Dsrc[rb * N + c] : T(0);
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    constexpr int dummy = 0;
+    const int ja = j < H ? j : dummy;
+    const T sg = j < p ? T(1) : T(-1);
+    const T d = sg * __shfl_sync(kAll, j < H ? A[ja] : Bv[j],
+                                 j < H ? j : N - 1 - j);
+    const T rt = sqrt(floored(d)), ljj = d / rt;
+    const int own = (j / kPanel + 1) * kPanel;
+    T ea = T(0), eb = T(0);
+    if (j < H && act && ra >= j) {
+      ea = sg * A[ja] / (ra < own ? rt : ljj);
+      A[ja] = ea;
+      bad = bad || !isfinite(ea);
+    }
+    if (act && rb >= j) {
+      eb = sg * Bv[j] / (rb < own ? rt : ljj);
+      Bv[j] = eb;
+      bad = bad || !isfinite(eb);
+    }
+    const T sa = sg * ea, sb = sg * eb;
+#pragma unroll
+    for (int c = j + 1; c < N; ++c) {
+      const T ec = __shfl_sync(kAll, c < H ? ea : eb, c < H ? c : N - 1 - c);
+      if (c < H && act && c <= ra) A[c < H ? c : 0] -= sa * ec;
+      if (act && c <= rb) Bv[c] -= sb * ec;
+    }
+  }
+  const bool overflow = __any_sync(kAll, bad) != 0;
+  if (Lcopy != nullptr && act) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      Lcopy[ra * N + c] = c <= ra ? A[c < H ? c : 0] : T(0);
+      Lcopy[rb * N + c] = c <= rb ? Bv[c] : T(0);
+    }
+  }
+  // L^{-1}: at step j row j is final once scaled by 1 / L_jj, and its
+  // terms go into the rows below it
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    constexpr int dummy = 0;
+    const int ja = j < H ? j : dummy;
+    const int owner = j < H ? j : N - 1 - j;
+    const T inv = T(1) / __shfl_sync(kAll, j < H ? A[ja] : Bv[j], owner);
+    if (j < H && act && ra == j) {
+#pragma unroll
+      for (int c = 0; c <= j; ++c)
+        A[c < H ? c : 0] = c == j ? inv : A[c < H ? c : 0] * inv;
+    }
+    if (act && rb == j) {
+#pragma unroll
+      for (int c = 0; c <= j; ++c) Bv[c] = c == j ? inv : Bv[c] * inv;
+    }
+    const T la = j < H && act && ra > j ? A[ja] : T(0);
+    const T lb = act && rb > j ? Bv[j] : T(0);
+#pragma unroll
+    for (int c = 0; c <= j; ++c) {
+      const T xc = __shfl_sync(kAll, j < H ? A[c < H ? c : 0] : Bv[c], owner);
+      if (j < H && act && ra > j) {
+        if (c < j) A[c < H ? c : 0] -= la * xc;
+        else A[ja] = -(la * xc);
+      }
+      if (act && rb > j) {
+        if (c < j) Bv[c] -= lb * xc;
+        else Bv[c] = -(lb * xc);
+      }
+    }
+  }
+  if (act) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const T va = overflow ? T(NAN) : c <= ra ? A[c < H ? c : 0] : T(0);
+      const T vb = overflow ? T(NAN) : c <= rb ? Bv[c] : T(0);
+      Lout[ra * N + c] = va;
+      Lout[rb * N + c] = vb;
+      F[ra * ts + c] = va;
+      F[rb * ts + c] = vb;
+    }
+  }
+  __syncwarp();
+}
+
+// The block factor: in registers for a float 48 x 48 block and a full
+// warp (49 entries a lane fit the registers only in float), else in the
+// shared tile. The host build selects alike, so its float instantiation
+// runs the register factor and its double one the shared one.
+template <typename T>
+__device__ __forceinline__ void warp_block_factor(const T* Dsrc, T* F,
+                                                  T* Lout, T* Lcopy, int n,
+                                                  int p, int lane, int nl) {
+  if constexpr (sizeof(T) == 4) {
+    if (n == kRegN && nl == kWarp) {
+      warp_block_factor_reg(Dsrc, F, Lout, Lcopy, p, lane);
+      return;
+    }
+  }
+  warp_block_factor_smem(Dsrc, F, Lout, Lcopy, n, p, lane, nl);
+}
+
+// acc[a][b] += sum_{t < n} s_t A[i0 + a, t] B[j0 + b, t] for a kTile x
+// kTile tile, with A[i, t] = A0[i ai + t at] (B alike); rows past ni / nj
+// read 0. s_t is S's sign: -1 for t >= p (p = n: all +1).
+template <typename T>
+__device__ __forceinline__ void tile_dot(const T* A0, long long ai,
+                                         long long at, const T* B0,
+                                         long long bj, long long bt, int i0,
+                                         int j0, int ni, int nj, int n,
+                                         int p, T (&acc)[kTile][kTile]) {
+#pragma unroll 4
+  for (int t = 0; t < n; ++t) {
+    const T sg = t >= p ? T(-1) : T(1);
+    T av[kTile], bw[kTile];
+    for (int a = 0; a < kTile; ++a)
+      av[a] = i0 + a < ni ? sg * A0[(i0 + a) * ai + t * at] : T(0);
+    for (int b = 0; b < kTile; ++b)
+      bw[b] = j0 + b < nj ? B0[(j0 + b) * bj + t * bt] : T(0);
+    for (int a = 0; a < kTile; ++a)
+      for (int b = 0; b < kTile; ++b) acc[a][b] += av[a] * bw[b];
+  }
+}
+
+// R = L^{-1} O_left and Q = L^{-1} O_rt^T of `cnt` odd blocks m0.. of a
+// level of n blocks, whose L^{-1} sit in the factor tiles (tiles, one
+// every tstride elements), into the factor's (R, Q) slots (`blocks`, the
+// level's first odd block). O holds the level's couplings, w rows each.
+// O's last me rows are zero, so R sums over w terms and Q's last me
+// columns are zero.
+template <typename T>
+__device__ __forceinline__ void level_rq(const T* tiles, long long tstride,
+                                      const T* O, int n, int m0, int cnt,
+                                      T* blocks, int Wp, int w, int tid,
+                                      int nt) {
+  const long long WW = (long long)Wp * Wp;
+  const int tb = (Wp + kTile - 1) / kTile, tw = (w + kTile - 1) / kTile;
+  const int per = tb * tb + tb * tw;
+  for (int it = tid; it < cnt * per; it += nt) {
+    const int q = it / per, rem = it % per, m = m0 + q;
+    const T* Li = tiles + q * tstride;
+    const int ls = tile_stride(Wp);
+    T* Fm = blocks + (long long)m * 3 * WW;
+    T acc[kTile][kTile] = {};
+    if (rem < tb * tb) {
+      const int i0 = rem / tb * kTile, j0 = rem % tb * kTile;
+      tile_dot(Li, ls, 1, O + (long long)(2 * m) * w * Wp, 1, Wp, i0, j0,
+               Wp, Wp, w, w, acc);
+      for (int a = 0; a < kTile && i0 + a < Wp; ++a)
+        for (int b = 0; b < kTile && j0 + b < Wp; ++b)
+          Fm[WW + (i0 + a) * Wp + j0 + b] = acc[a][b];
+    } else {
+      const int r2 = rem - tb * tb;
+      const int i0 = r2 / tw * kTile, j0 = r2 % tw * kTile;
+      if (2 * m + 1 < n - 1)
+        tile_dot(Li, ls, 1, O + (long long)(2 * m + 1) * w * Wp, Wp, 1, i0,
+                 j0, Wp, w, Wp, Wp, acc);
+      for (int a = 0; a < kTile && i0 + a < Wp; ++a) {
+        for (int b = 0; b < kTile && j0 + b < w; ++b)
+          Fm[2 * WW + (i0 + a) * Wp + j0 + b] = acc[a][b];
+        if (j0 + kTile >= w)
+          for (int b = w; b < Wp; ++b) Fm[2 * WW + (i0 + a) * Wp + b] = 0;
+      }
+    }
+  }
+}
+
+// The even blocks of the next level from a level of n blocks D (and the
+// factor's (L^{-1}, R, Q) of its odd blocks): D'_m = D_2m - R_m^T S R_m
+// - Q_{m-1}^T S Q_{m-1} (lower triangle: the factors read no more) and
+// O'_m = -Q_m^T S R_m (its first w rows; the rest is zero).
+template <typename T>
+__device__ __forceinline__ void level_schur(const T* D, int n,
+                                         const T* blocks, T* Dn, T* On,
+                                         int Wp, int w, int tid, int nt) {
+  const long long WW = (long long)Wp * Wp;
+  const int o = n / 2, ne = n - o;
+  const int tb = (Wp + kTile - 1) / kTile, tw = (w + kTile - 1) / kTile;
+  const int tri = tb * (tb + 1) / 2, per = tri + tb * tw;
+  for (int it = tid; it < ne * per; it += nt) {
+    const int m = it / per, rem = it % per;
+    T acc[kTile][kTile] = {};
+    if (rem < tri) {
+      int ti = 0;
+      while ((ti + 1) * (ti + 2) / 2 <= rem) ++ti;
+      const int i0 = ti * kTile, j0 = (rem - ti * (ti + 1) / 2) * kTile;
+      const T* Dm = D + (long long)(2 * m) * WW;
+      T* Dnm = Dn + (long long)m * WW;
+      for (int a = 0; a < kTile; ++a)
+        for (int b = 0; b < kTile; ++b)
+          if (i0 + a < Wp && j0 + b < Wp)
+            acc[a][b] = Dm[(i0 + a) * Wp + j0 + b];
+      if (m < o) {
+        const T* R = blocks + ((long long)m * 3 + 1) * WW;
+        T sr[kTile][kTile] = {};
+        tile_dot(R, 1, Wp, R, 1, Wp, i0, j0, Wp, Wp, Wp, w, sr);
+        for (int a = 0; a < kTile; ++a)
+          for (int b = 0; b < kTile; ++b) acc[a][b] -= sr[a][b];
+      }
+      if (m >= 1 && i0 < w && j0 < w) {
+        const T* Q = blocks + ((long long)(m - 1) * 3 + 2) * WW;
+        T sq[kTile][kTile] = {};
+        tile_dot(Q, 1, Wp, Q, 1, Wp, i0, j0, w, w, Wp, w, sq);
+        for (int a = 0; a < kTile; ++a)
+          for (int b = 0; b < kTile; ++b) acc[a][b] -= sq[a][b];
+      }
+      for (int a = 0; a < kTile && i0 + a < Wp; ++a)
+        for (int b = 0; b < kTile && j0 + b < Wp; ++b)
+          Dnm[(i0 + a) * Wp + j0 + b] = acc[a][b];
+    } else if (m + 1 < ne) {
+      const int r2 = rem - tri;
+      const int i0 = r2 / tb * kTile, j0 = r2 % tb * kTile;
+      const T* R = blocks + ((long long)m * 3 + 1) * WW;
+      const T* Q = blocks + ((long long)m * 3 + 2) * WW;
+      tile_dot(Q, 1, Wp, R, 1, Wp, i0, j0, w, Wp, Wp, w, acc);
+      T* Onm = On + (long long)m * w * Wp;
+      for (int a = 0; a < kTile && i0 + a < w; ++a)
+        for (int b = 0; b < kTile && j0 + b < Wp; ++b)
+          Onm[(i0 + a) * Wp + j0 + b] = -acc[a][b];
+    }
+  }
 }
 
 template <typename T>
 struct Solver {
   const Dims& P;
-  int K, w, me, mc, l, S, Wp, U, tid, nt;
+  int K, w, me, mc, l, S, Wp, U, tid, nt, nfac;
+  long long WW;
   // inputs of this scenario
   const T *AT, *GT, *beq, *h, *c, *deq, *dc, *Est;
-  // factor storage (global)
-  T *Linv, *Pf, *Tst;
+  // KKT blocks and factor (global): D and O of the level being reduced
+  // and of the next, the factor in cr_pack's layout, solve vectors
+  T *Dl, *Ol, *Fb, *Froot, *bv, *xv;
   // iterate state and temporaries (global)
   T *x, *y, *s, *z, *bx, *by, *bs, *bz;
   T *rx, *ry, *rz, *rd, *ru, *rdet, *lam, *idd, *idu, *iddet;
   T *dx, *dy, *dz, *ds, *c1, *c2, *w1, *w2, *e1, *e2;
-  // kkt_solve scratch (global)
-  T *u3, *sy, *sz, *r1, *ax, *gx, *mx, *rr1, *ff2, *cx, *cy;
-  // shared
-  T *gw, *bufD, *bufL, *Pm, *hA, *hB, *hxn, *vec, *vec2, *carry, *xn, *red;
+  // kkt_solve scratch (global); gd is G dx of the last solve
+  T *u3, *sy, *sz, *r1, *ax, *gx, *gd, *mx, *rr1, *ff2, *cx, *cy;
+  // shared: one region that the assembly, the block factors and the
+  // solves use in turn, then the reduction buffer (at red_off)
+  long long red_off;
+  __device__ __forceinline__ T* region() const {
+    return reinterpret_cast<T*>(mono_smem);
+  }
+  __device__ __forceinline__ T* red() const { return region() + red_off; }
+  // phase counters (thread 0 only; prof null: nothing recorded)
+  long long* prof = nullptr;
+  long long pacc[kPhases] = {};
+  long long t_last = 0, t0_cycles = 0, t0_ns = 0;
+  bool in_init = true;
 
-  __device__ Solver(const Dims& dims, T* smem, T* work, const T* AT_,
+  __device__ void tick(int phase) {
+    if (prof == nullptr || tid != 0) return;
+    const long long now = clock64();
+    pacc[in_init ? int(kInit) : phase] += now - t_last;
+    t_last = now;
+  }
+
+  __device__ Solver(const Dims& dims, T* work, const T* AT_,
                     const T* GT_, const T* beq_, const T* h_, const T* c_,
                     const T* deq_, const T* dc_, const T* Est_)
       : P(dims) {
     K = P.K; w = P.w; me = P.me; mc = P.mc; l = P.l; S = P.S; Wp = P.Wp;
     U = l + S;
+    WW = (long long)Wp * Wp;
     tid = threadIdx.x;
     nt = blockDim.x;
+    nfac = P.nfac;
     AT = AT_; GT = GT_; beq = beq_; h = h_; c = c_; deq = deq_; dc = dc_;
     Est = Est_;
     const int nw = K * w, ne = K * me, nc = K * mc;
     T* p = work;
-    Linv = p; p += (long long)K * Wp * Wp;
-    Pf = p; p += (long long)(K - 1) * Wp * w;
-    Tst = p; p += K * Wp;
+    Dl = p; p += 2 * K * WW;
+    Ol = p; p += 2LL * (K - 1) * w * Wp;
+    Fb = p; p += (K - 1) * 3 * WW;
+    Froot = p; p += WW;
+    bv = p; p += (long long)K * Wp;
+    xv = p; p += (long long)K * Wp;
     T** cvecs[] = {&s, &z, &bs, &bz, &rz, &rd, &ru, &rdet, &lam, &idd, &idu,
-                   &iddet, &dz, &ds, &c1, &c2, &u3, &sz, &gx};
+                   &iddet, &dz, &ds, &c1, &c2, &u3, &sz, &gx, &gd};
     for (T** v : cvecs) { *v = p; p += nc; }
     T** wvecs[] = {&x, &bx, &rx, &dx, &w1, &w2, &r1, &mx, &rr1, &cx};
     for (T** v : wvecs) { *v = p; p += nw; }
     T** evecs[] = {&y, &by, &ry, &dy, &e1, &e2, &sy, &ax, &ff2, &cy};
     for (T** v : evecs) { *v = p; p += ne; }
-    T* sp = smem;
-    gw = sp; sp += 2 * w * mc;
-    bufD = sp; sp += Wp * Wp;
-    bufL = sp; sp += Wp * Wp;
-    Pm = sp; sp += Wp * w;
-    hA = sp; sp += w * w;
-    hB = sp; sp += w * w;
-    hxn = sp; sp += w * w;
-    vec = sp; sp += Wp;
-    vec2 = sp; sp += Wp;
-    carry = sp; sp += Wp;
-    xn = sp; sp += Wp;
-    red = sp;
+    red_off = smem_elems(K, w, me, mc, nt, nfac) - nt;
   }
 
   __device__ __forceinline__ void sync() { __syncthreads(); }
 
-  // ---- block reductions (blockDim.x is a power of two) ----
+  // ---- block reductions: by shuffles within each group of G =
+  // min(32, blockDim.x) lanes (a power of two dividing blockDim.x), then
+  // over the groups' results in a fixed order by every thread ----
 
   template <typename Op>
   __device__ T reduce(T v, Op op) {
-    red[tid] = v;
+    const int G = nt < kWarp ? nt : kWarp;
+    for (int o = G / 2; o > 0; o >>= 1)
+      v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+    T* rb = red();
+    if (tid % G == 0) rb[tid / G] = v;
     sync();
-    for (int st = nt / 2; st > 0; st >>= 1) {
-      if (tid < st) red[tid] = op(red[tid], red[tid + st]);
-      sync();
-    }
-    const T r = red[0];
+    T r = rb[0];
+    for (int i = 1; i < nt / G; ++i) r = op(r, rb[i]);
     sync();
     return r;
   }
@@ -163,6 +614,7 @@ struct Solver {
       const int k = i / m, r = i % m;
       const T* a = M + (long long)k * 2 * w * m + r;
       T acc = 0;
+#pragma unroll 4
       for (int cc = 0; cc < 2 * w; ++cc) acc += a[cc * m] * xcat(v, k, cc);
       out[i] = acc;
     }
@@ -174,7 +626,9 @@ struct Solver {
     const T* a = AT + ((long long)k * 2 * w + cc) * me;
     const T* g = GT + ((long long)k * 2 * w + cc) * mc;
     T s1 = 0, s2 = 0;
+#pragma unroll 4
     for (int m = 0; m < me; ++m) s1 += a[m] * yv[k * me + m];
+#pragma unroll 4
     for (int j = 0; j < mc; ++j) s2 += g[j] * zv[k * mc + j];
     return s1 + s2;
   }
@@ -218,14 +672,17 @@ struct Solver {
       out[j] = T(2) * ui * sacc - (Jsgn(j) * v[j]) / dt;
     }
   }
+  // W^{-1} v, or W^{-2} v (W^{-1} twice, cone by cone) with `twice`
   __device__ void apply_Winv(const T* d, const T* uu, const T* det,
-                             const T* v, T* out) {
+                             const T* v, T* out, bool twice = false) {
     for (int i = tid; i < K * U; i += nt) {
       const int k = i / U, u = i % U;
       int off, q;
       unit(u, off, q);
       const int b = k * mc + off;
       winv_cone(u < l, q, d + b, uu + b, det + b, v + b, out + b);
+      if (twice)
+        winv_cone(u < l, q, d + b, uu + b, det + b, out + b, out + b);
     }
     sync();
   }
@@ -380,192 +837,241 @@ struct Solver {
     sync();
   }
 
-  // ---- KKT: sequential signed block-LDL^T over the stages ----
+  // ---- KKT: every stage assembled at once, then cyclic reduction ----
   //
   // Stage block D_k (Wp x Wp) = [[eps I + Hxx_k + Hnn_{k-1}, Axy_k],
   // [Axy_k^T, -delta I]] with Gam = GwT GwT^T + rho AT AT^T, coupling
-  // O_k = M[k+1, k] = [[Hxn_k, AT_k[w:, :]], [0, 0]]. Factor
-  // D'_k = L_k S L_k^T (S = +1 on the w primal columns, -1 on the me dual
-  // ones), P_k = L_k^{-1} O_k^T, D'_{k+1} = D_{k+1} - P_k^T S P_k.
+  // O_k = M[k+1, k] = [[Hxn_k, AT_k[w:, :]], [0, 0]]: only its first w
+  // rows are stored. The blocks do not depend on the factor, so all K are
+  // assembled before it, with stage k+1's GT and AT tiles copied in
+  // (cp.async) while stage k's products run.
 
-  __device__ void factor(const T* d, const T* uu, const T* det) {
+  // one stage's GT and AT tiles and its cone scaling (d, u, det: 3 mc)
+  // in shared memory, buffer `buf`
+  __device__ long long stage_elems() const {
+    return 2LL * w * (odd_stride(mc) + odd_stride(me)) + 3LL * mc;
+  }
+  __device__ T* gtile(int buf) const {
+    return region() + buf * stage_elems();
+  }
+  __device__ T* atile(int buf) const {
+    return gtile(buf) + 2LL * w * odd_stride(mc);
+  }
+  __device__ T* stile(int buf) const {
+    return atile(buf) + 2LL * w * odd_stride(me);
+  }
+  __device__ void stage_copy(int k, int buf, const T* d, const T* uu,
+                             const T* det) {
+    const int gs = odd_stride(mc), as = odd_stride(me);
+    const int warp = tid / kWarp, lane = tid % kWarp;
+    const int nwarps = (nt + kWarp - 1) / kWarp;
+    const int nl = nt - warp * kWarp < kWarp ? nt - warp * kWarp : kWarp;
+    const T* GTk = GT + (long long)k * 2 * w * mc;
+    const T* ATk = AT + (long long)k * 2 * w * me;
+    T* g = gtile(buf);
+    T* a = atile(buf);
+    T* sc = stile(buf);
+    for (int r = warp; r < 2 * w; r += nwarps) {
+      for (int cc = lane; cc < mc; cc += nl)
+        __pipeline_memcpy_async(g + r * gs + cc, GTk + r * mc + cc,
+                                sizeof(T));
+      for (int cc = lane; cc < me; cc += nl)
+        __pipeline_memcpy_async(a + r * as + cc, ATk + r * me + cc,
+                                sizeof(T));
+    }
+    for (int i = tid; i < mc; i += nt) {
+      __pipeline_memcpy_async(sc + i, d + k * mc + i, sizeof(T));
+      __pipeline_memcpy_async(sc + mc + i, uu + k * mc + i, sizeof(T));
+      __pipeline_memcpy_async(sc + 2 * mc + i, det + k * mc + i, sizeof(T));
+    }
+    __pipeline_commit();
+  }
+
+  __device__ void assemble(const T* d, const T* uu, const T* det) {
     const T eps = T(P.eps_reg), rho = T(P.rho);
-    T* hprev = hA;
-    T* hcur = hB;
+    const int gs = odd_stride(mc), as = odd_stride(me), hw = (w + 1) / 2;
+    T* hnn = region() + 2 * stage_elems();  // Hnn of the previous stage
+    T* gw = hnn + w * w;                   // W^{-1} G_k^T
+    T* cone = gw + 2 * w * gs;             // per slot: its cone's head, size
+    T* D0 = Dl;
+    T* O0 = Ol;
+    for (int j = tid; j < mc; j += nt) {
+      int head = -1, q = 1;
+      for (int c = 0; c < S; ++c)
+        if (j >= P.soc_off[c] && j < P.soc_off[c] + P.soc_q[c]) {
+          head = P.soc_off[c];
+          q = P.soc_q[c];
+        }
+      cone[j] = T(head);
+      cone[mc + j] = T(q);
+    }
+    stage_copy(0, 0, d, uu, det);
     for (int k = 0; k < K; ++k) {
-      const T* GTk = GT + (long long)k * 2 * w * mc;
-      const T* ATk = AT + (long long)k * 2 * w * me;
-      // rows of W^{-1} G_k^T (the scaling applied along the cone axis)
-      for (int i = tid; i < 2 * w * U; i += nt) {
-        const int r = i / U, u = i % U;
-        int off, q;
-        unit(u, off, q);
-        const int b = k * mc + off;
-        winv_cone(u < l, q, d + b, uu + b, det + b, GTk + r * mc + off,
-                  gw + r * mc + off);
+      const int buf = k & 1;
+      if (k + 1 < K) {
+        stage_copy(k + 1, buf ^ 1, d, uu, det);
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
       }
       sync();
-      // Gram blocks: Hxx into D, Hnn kept for stage k+1, Hxn for O_k
-      for (int i = tid; i < 3 * w * w; i += nt) {
-        const int blk = i / (w * w), a = (i % (w * w)) / w, bb = i % w;
-        const int ra = blk == 0 ? a : w + a;
-        const int rb = blk == 1 ? w + bb : bb;
-        T g1 = 0, g2 = 0;
-        for (int j = 0; j < mc; ++j) g1 += gw[ra * mc + j] * gw[rb * mc + j];
-        for (int m = 0; m < me; ++m) g2 += ATk[ra * me + m] * ATk[rb * me + m];
-        const T gam = g1 + rho * g2;
-        if (blk == 0) {
-          T dv = (a == bb ? eps : T(0)) + gam;
-          if (k > 0) {
-            dv += hprev[a * w + bb];
-            T pp = 0;
-            for (int t = 0; t < Wp; ++t)
-              pp += (t < w ? T(1) : T(-1)) * Pm[t * w + a] * Pm[t * w + bb];
-            dv -= pp;
-          }
-          bufD[a * Wp + bb] = dv;
-        } else if (blk == 1) {
-          hcur[a * w + bb] = gam;
+      const T* g = gtile(buf);
+      const T* a = atile(buf);
+      T* sc = stile(buf);
+      // the stage's scaling per slot: 1 / d (nonneg), J u / det and
+      // J / det (SOC), so that W^{-1} v needs no division
+      for (int j = tid; j < mc; j += nt) {
+        if (cone[j] < T(0)) {
+          sc[j] = T(1) / sc[j];
         } else {
-          hxn[a * w + bb] = gam;
+          const T J = cone[j] == T(j) ? T(1) : T(-1), dt = sc[2 * mc + j];
+          sc[mc + j] = J * sc[mc + j] / dt;
+          sc[2 * mc + j] = J / dt;
         }
       }
+      sync();
+      // rows of W^{-1} G_k^T (the scaling applied along the cone axis),
+      // one slot of one row per work item
+      for (int i = tid; i < 2 * w * mc; i += nt) {
+        const int r = i / mc, j = i % mc;
+        const T* gr = g + r * gs;
+        const int head = int(cone[j]);
+        T o;
+        if (head < 0) {
+          o = gr[j] * sc[j];
+        } else {
+          const int q = int(cone[mc + j]);
+          T sacc = 0;
+          for (int t = head; t < head + q; ++t) sacc += sc[mc + t] * gr[t];
+          o = T(2) * sc[mc + j] * sacc - sc[2 * mc + j] * gr[j];
+        }
+        gw[r * gs + j] = o;
+      }
+      sync();
+      // Gram blocks Hxx, Hnn, Hxn at (ra, cb) and (ra, cb + hw): one row
+      // and two columns of each per work item
+      T* Dk = D0 + k * WW;
+      T* Ok = O0 + (long long)k * w * Wp;
+      for (int i = tid; i < w * hw; i += nt) {
+        const int ra = i / hw, cb = i % hw;
+        const bool two = cb + hw < w;
+        const int cb2 = two ? cb + hw : cb;
+        const T* rx_ = gw + ra * gs;
+        const T* rn_ = gw + (w + ra) * gs;
+        const T* c0 = gw + cb * gs;
+        const T* c1_ = gw + cb2 * gs;
+        const T* n0 = gw + (w + cb) * gs;
+        const T* n1 = gw + (w + cb2) * gs;
+        T gxx[2] = {0, 0}, gn[2] = {0, 0}, gxn[2] = {0, 0};
+#pragma unroll 4
+        for (int j = 0; j < mc; ++j) {
+          const T vx = rx_[j], vn = rn_[j], u0 = c0[j], u1 = c1_[j];
+          gxx[0] += vx * u0; gxx[1] += vx * u1;
+          gn[0] += vn * n0[j]; gn[1] += vn * n1[j];
+          gxn[0] += vn * u0; gxn[1] += vn * u1;
+        }
+        const T* ax_ = a + ra * as;
+        const T* an_ = a + (w + ra) * as;
+        const T* e0 = a + cb * as;
+        const T* e1_ = a + cb2 * as;
+        const T* f0 = a + (w + cb) * as;
+        const T* f1_ = a + (w + cb2) * as;
+        T ax2[2] = {0, 0}, an2[2] = {0, 0}, axn[2] = {0, 0};
+#pragma unroll 4
+        for (int m = 0; m < me; ++m) {
+          const T vx = ax_[m], vn = an_[m], u0 = e0[m], u1 = e1_[m];
+          ax2[0] += vx * u0; ax2[1] += vx * u1;
+          an2[0] += vn * f0[m]; an2[1] += vn * f1_[m];
+          axn[0] += vn * u0; axn[1] += vn * u1;
+        }
+        for (int t = 0; t < (two ? 2 : 1); ++t) {
+          const int bb = t ? cb2 : cb;
+          T dv = (ra == bb ? eps : T(0)) + (gxx[t] + rho * ax2[t]);
+          if (k > 0) dv += hnn[ra * w + bb];
+          Dk[ra * Wp + bb] = dv;
+          hnn[ra * w + bb] = gn[t] + rho * an2[t];
+          if (k + 1 < K) Ok[ra * Wp + bb] = gxn[t] + rho * axn[t];
+        }
+      }
+      // the equality blocks of D_k and of O_k's first w rows
       for (int i = tid; i < Wp * Wp; i += nt) {
         const int r = i / Wp, cc = i % Wp;
         if (r < w && cc < w) continue;
         T v;
-        if (r < w) v = ATk[r * me + cc - w];
-        else if (cc < w) v = ATk[cc * me + r - w];
-        else v = r == cc ? -T(P.eps_reg) : T(0);
-        bufD[i] = v;
+        if (r < w) v = a[r * as + cc - w];
+        else if (cc < w) v = a[cc * as + r - w];
+        else v = r == cc ? -eps : T(0);
+        Dk[i] = v;
       }
+      if (k + 1 < K)
+        for (int i = tid; i < w * me; i += nt)
+          Ok[(i / me) * Wp + w + i % me] = a[(w + i / me) * as + i % me];
       sync();
-      chol_inv();
-      T* Lk = Linv + (long long)k * Wp * Wp;
-      for (int i = tid; i < Wp * Wp; i += nt) Lk[i] = bufD[i];
-      if (k + 1 < K) {
-        // P_k = Linv_k O_k^T, only its first w columns are nonzero
-        T* Pk = Pf + (long long)k * Wp * w;
-        for (int i = tid; i < Wp * w; i += nt) {
-          const int r = i / w, j = i % w;
-          T acc = 0;
-          for (int t = 0; t <= r; ++t) {
-            const T o = t < w ? hxn[j * w + t] : ATk[(w + j) * me + t - w];
-            acc += bufD[r * Wp + t] * o;
-          }
-          Pm[i] = acc;
-          Pk[i] = acc;
-        }
-      }
-      sync();
-      T* tmp = hprev; hprev = hcur; hcur = tmp;
     }
+    tick(kAssembly);
   }
 
-  // bufD (lower triangle) -> signed Cholesky L in bufL -> L^{-1} in bufD,
-  // as the reference's signed_chol_inv (scpp_tpu/solver/mono_blocks.py)
-  // factors a block: in 8-column panels, every pivot floored at 1e-30.
-  // Column j has t_j = max(s_j D_jj, 1e-30) and divides the rows of its
-  // own panel by sqrt(t_j), the rows below that panel by
-  // L_jj = s_j D_jj / sqrt(t_j). Without a floored pivot that is the
-  // ordinary factor. A factor that overflows is NaN as a whole, as the
-  // reference's panel products make it (see solver/mono_blocks.py).
-  __device__ void chol_inv() {
-    const int n = Wp;
-    for (int j = 0; j < n; ++j) {
-      const T sg = j < w ? T(1) : T(-1);
-      const T d = sg * bufD[j * n + j];
-      const T rt = sqrt(floored(d)), ljj = d / rt;
-      const int own = (j / kPanel + 1) * kPanel;
-      for (int i = tid; i < n * n; i += nt) {
-        const int r = i / n, cc = i % n;
-        if (r > j && cc > j && cc <= r)
-          bufD[i] -= sg * bufD[r * n + j] * bufD[cc * n + j] /
-                     ((r < own ? rt : ljj) * (cc < own ? rt : ljj));
+  // the cyclic-reduction factor of the assembled blocks, in the
+  // reference's order (scpp_tpu/solver/mono_blocks.py:mono_cr_factor):
+  // per level, the odd blocks' factors (one warp each, nfac at a time),
+  // their R and Q, then the next level's blocks; the root last
+  __device__ void cr_factor() {
+    const int warp = tid / kWarp, lane = tid % kWarp;
+    const int nl = nt - warp * kWarp < kWarp ? nt - warp * kWarp : kWarp;
+    const long long tstride = factor_tile_elems(Wp);
+    T *D = Dl, *O = Ol;
+    T* Dn = Dl + K * WW;
+    T* On = Ol + (long long)(K - 1) * w * Wp;
+    T* blocks = Fb;
+    for (int n = K; n > 1; n -= n / 2) {
+      const int o = n / 2;
+      for (int m0 = 0; m0 < o; m0 += nfac) {
+        const int cnt = o - m0 < nfac ? o - m0 : nfac;
+        if (warp < cnt)
+          warp_block_factor(D + (long long)(2 * (m0 + warp) + 1) * WW,
+                            region() + warp * tstride,
+                            blocks + (long long)(m0 + warp) * 3 * WW,
+                            (T*)nullptr, Wp, w, lane, nl);
+        sync();
+        tick(kBlockFactor);
+        level_rq(region(), tstride, O, n, m0, cnt, blocks, Wp, w, tid, nt);
+        sync();
+        tick(kLevelProducts);
       }
+      level_schur(D, n, blocks, Dn, On, Wp, w, tid, nt);
       sync();
+      tick(kLevelProducts);
+      T* t = D; D = Dn; Dn = t;
+      t = O; O = On; On = t;
+      blocks += (long long)o * 3 * WW;
     }
-    T overflow = 0;                       // NaN iff an entry of L is not finite
-    for (int i = tid; i < n * n; i += nt) {
-      const int r = i / n, cc = i % n;
-      T v = 0;
-      if (r >= cc) {
-        const T sg = cc < w ? T(1) : T(-1);
-        const T d = sg * bufD[cc * n + cc];
-        const T rt = sqrt(floored(d));
-        v = sg * bufD[i] / (r < (cc / kPanel + 1) * kPanel ? rt : d / rt);
-      }
-      bufL[i] = v;
-      overflow += v * T(0);
-    }
-    overflow = sum(overflow);
-    // one thread per column of L^{-1}: forward substitution
-    for (int cc = tid; cc < n; cc += nt) {
-      for (int r = 0; r < cc; ++r) bufD[r * n + cc] = 0;
-      bufD[cc * n + cc] = T(1) / bufL[cc * n + cc];
-      for (int r = cc + 1; r < n; ++r) {
-        T acc = 0;
-        for (int t = cc; t < r; ++t) acc += bufL[r * n + t] * bufD[t * n + cc];
-        bufD[r * n + cc] = -acc / bufL[r * n + r];
-      }
+    if (warp == 0)
+      warp_block_factor(D, region(), Froot, (T*)nullptr, Wp, w, lane, nl);
+    sync();
+    tick(kBlockFactor);
+  }
+
+  __device__ void factor(const T* d, const T* uu, const T* det) {
+    assemble(d, uu, det);
+    cr_factor();
+  }
+
+  // solve M [ox; oy] = [rx_; ry_] with the stored factor: kernel 4's
+  // cyclic-reduction solve (cr_solve_body.cuh) on the same layout
+  __device__ void raw_solve(const T* rxv, const T* ryv, T* ox, T* oy) {
+    for (int i = tid; i < K * Wp; i += nt) {
+      const int k = i / Wp, j = i % Wp;
+      bv[i] = j < w ? rxv[k * w + j] : ryv[k * me + j - w];
     }
     sync();
-    if (overflow != overflow) {
-      for (int i = tid; i < n * n; i += nt) bufD[i] = T(NAN);
-      sync();
+    cr::solve<T>(K, Wp, w, Fb, Froot, bv, xv, region());
+    sync();
+    for (int i = tid; i < K * Wp; i += nt) {
+      const int k = i / Wp, j = i % Wp;
+      if (j < w) ox[k * w + j] = xv[i];
+      else oy[k * me + j - w] = xv[i];
     }
-  }
-
-  // solve M [ox; oy] = [rx_; ry_] with the stored factor
-  __device__ void raw_solve(const T* rxv, const T* ryv, T* ox, T* oy) {
-    for (int k = 0; k < K; ++k) {
-      for (int i = tid; i < Wp; i += nt)
-        vec[i] = i < w ? rxv[k * w + i] - (k > 0 ? carry[i] : T(0))
-                       : ryv[k * me + i - w];
-      sync();
-      const T* Li = Linv + (long long)k * Wp * Wp;
-      for (int i = tid; i < Wp; i += nt) {
-        T acc = 0;
-        for (int j = 0; j <= i; ++j) acc += Li[i * Wp + j] * vec[j];
-        Tst[k * Wp + i] = acc;
-      }
-      sync();
-      if (k + 1 < K) {
-        const T* Pk = Pf + (long long)k * Wp * w;
-        for (int a = tid; a < w; a += nt) {
-          T acc = 0;
-          for (int i = 0; i < Wp; ++i)
-            acc += Pk[i * w + a] * ((i < w ? T(1) : T(-1)) * Tst[k * Wp + i]);
-          carry[a] = acc;
-        }
-        sync();
-      }
-    }
-    for (int k = K - 1; k >= 0; --k) {
-      const T* Li = Linv + (long long)k * Wp * Wp;
-      for (int i = tid; i < Wp; i += nt) {
-        T g = Tst[k * Wp + i];
-        if (k + 1 < K) {
-          const T* Pk = Pf + (long long)k * Wp * w;
-          T acc = 0;
-          for (int a = 0; a < w; ++a) acc += Pk[i * w + a] * xn[a];
-          g -= acc;
-        }
-        vec[i] = i < w ? g : -g;
-      }
-      sync();
-      for (int j = tid; j < Wp; j += nt) {
-        T acc = 0;
-        for (int i = j; i < Wp; ++i) acc += Li[i * Wp + j] * vec[i];
-        vec2[j] = acc;
-      }
-      sync();
-      for (int j = tid; j < Wp; j += nt) {
-        if (j < w) { ox[k * w + j] = vec2[j]; xn[j] = vec2[j]; }
-        else oy[k * me + j - w] = vec2[j];
-      }
-      sync();
-    }
+    sync();
   }
 
   // Newton direction for right-hand sides (f1, f2, rzWd) under a rep
@@ -574,8 +1080,7 @@ struct Solver {
                             int refine, T* odx, T* ody, T* odz) {
     const int nw = K * w, ne = K * me, nc = K * mc;
     const T rho = T(P.rho);
-    apply_Winv(d, uu, det, rzWd, u3);
-    apply_Winv(d, uu, det, u3, u3);
+    apply_Winv(d, uu, det, rzWd, u3, true);
     for (int i = tid; i < ne; i += nt) sy[i] = rho * f2[i];
     for (int i = tid; i < nc; i += nt) sz[i] = -u3[i];
     sync();
@@ -586,8 +1091,7 @@ struct Solver {
     for (int it = 0; it < refine; ++it) {
       A_mv(odx, ax);
       G_mv(odx, gx);
-      apply_Winv(d, uu, det, gx, gx);
-      apply_Winv(d, uu, det, gx, gx);
+      apply_Winv(d, uu, det, gx, gx, true);
       for (int i = tid; i < ne; i += nt) sy[i] = rho * ax[i] + ody[i];
       sync();
       AG_rmv(sy, gx, mx);
@@ -599,11 +1103,11 @@ struct Solver {
       for (int i = tid; i < ne; i += nt) ody[i] += cy[i];
       sync();
     }
-    G_mv(odx, gx);
-    apply_Winv(d, uu, det, gx, gx);
-    apply_Winv(d, uu, det, gx, gx);
+    G_mv(odx, gd);
+    apply_Winv(d, uu, det, gd, gx, true);
     for (int i = tid; i < nc; i += nt) odz[i] = gx[i] + u3[i];
     sync();
+    tick(kSolves);
   }
 
   // residuals rx, ry, rz of (xv, yv, sv, zv); returns the score and sets
@@ -639,7 +1143,13 @@ struct Solver {
 
   // the whole solve; returns the iteration count and writes the outputs
   __device__ void run(const T* scal, const T* wx, const T* wy, const T* wz,
-                      T* ox, T* oy, T* os, T* oz, T* odiag) {
+                      T* ox, T* oy, T* os, T* oz, T* odiag,
+                      long long* prof_ = nullptr) {
+    prof = prof_;
+    if (prof != nullptr && tid == 0) {
+      t_last = t0_cycles = clock64();
+      t0_ns = wall_ns();
+    }
     const int nw = K * w, ne = K * me, nc = K * mc;
     const bool warm = scal[3] > T(0.5);
     const T kappa = T(P.warm_kappa);
@@ -694,8 +1204,12 @@ struct Solver {
       copy(s, os, nc);
       copy(z, oz, nc);
       if (tid == 0) odiag[0] = odiag[1] = odiag[2] = odiag[3] = 0;
+      tick(kInit);
+      write_prof();
       return;
     }
+    tick(kInit);
+    in_init = false;
 
     const bool track = P.track_best != 0;
     T bscore = T(INFINITY);
@@ -707,7 +1221,9 @@ struct Solver {
     while (it < max_it && !done) {
       const T score = residuals(x, y, s, z, scal);
       const T mu = gap / nu_deg;
+      tick(kResiduals);
       nt_scaling(s, z);
+      tick(kScaling);
       factor(rd, ru, rdet);
       // predictor (affine) direction
       for (int i = tid; i < nw; i += nt) w1[i] = -rx[i];
@@ -715,8 +1231,7 @@ struct Solver {
       for (int i = tid; i < nc; i += nt) c1[i] = rz[i] - s[i];
       sync();
       kkt_solve(rd, ru, rdet, w1, e1, c1, P.refine_steps, dx, dy, dz);
-      G_mv(dx, ds);
-      for (int i = tid; i < nc; i += nt) ds[i] = -ds[i] - rz[i];
+      for (int i = tid; i < nc; i += nt) ds[i] = -gd[i] - rz[i];
       sync();
       const T a_aff = jmin(max_step(s, ds), max_step(z, dz));
       const T alpha_aff = jmin(T(1), a_aff);
@@ -743,12 +1258,13 @@ struct Solver {
       apply_W(rd, ru, rdet, c2, c2);
       for (int i = tid; i < nc; i += nt) c1[i] = rz[i] + c2[i];
       sync();
+      tick(kConeStep);
       kkt_solve(rd, ru, rdet, w1, e1, c1, P.refine_steps, dx, dy, dz);
-      G_mv(dx, ds);
-      for (int i = tid; i < nc; i += nt) ds[i] = -ds[i] - rz[i];
+      for (int i = tid; i < nc; i += nt) ds[i] = -gd[i] - rz[i];
       sync();
       const T a_sz = jmin(max_step(s, ds), max_step(z, dz));
       const T alpha = jmin(T(1), T(P.step_frac) * a_sz);
+      tick(kConeStep);
       const bool conv = (pres < eps_feas) && (dres < eps_feas) &&
                         (relgap < eps_feas);
       if (track) {
@@ -774,6 +1290,7 @@ struct Solver {
         sync();
       }
       ++it;
+      tick(kRest);
     }
 
     // score the final stepped iterate
@@ -789,6 +1306,16 @@ struct Solver {
       odiag[2] = 0;
       odiag[3] = 0;
     }
+    sync();
+    tick(kRest);
+    write_prof();
+  }
+
+  __device__ void write_prof() {
+    if (prof == nullptr || tid != 0) return;
+    for (int i = 0; i < kPhases; ++i) prof[i] = pacc[i];
+    prof[kPhases] = clock64() - t0_cycles;
+    prof[kPhases + 1] = wall_ns() - t0_ns;
   }
 };
 

@@ -8,6 +8,10 @@ scaling) and ``_post`` (unscaling, original-space residuals; shared, in
 predictor-corrector solve: on a CUDA tensor it launches the hand-written
 kernel ``csrc/mono_ipm.cu`` (one thread block per scenario) or raises;
 on a CPU tensor it runs ``_solve_block``, the kernel's plain version.
+Both factor the staged KKT system by cyclic reduction in the reference's
+order (``staged_kkt.cr_factor`` with ``mono_blocks.mono_inverse_factor``,
+the reference's ``mono_cr_factor``) and solve it with
+``staged_kkt.cr_solve``.
 
 Per-scenario iteration counts: ``diag[:, 0, 1]`` counts the iterations
 of each scenario on its own, in the kernel and in ``_solve_block`` alike
@@ -18,7 +22,8 @@ of each scenario on its own, in the kernel and in ``_solve_block`` alike
 the starting point and a zero diag before any iteration; ``"iter<N>"``
 runs the iteration exactly N times, whatever ``settings.iters`` and the
 all-done test say (done scenarios stay frozen by the masks); anything
-else is the whole solve.
+else is the whole solve. ``prof`` (the kernel only) takes its per-phase
+clock counters (``PHASES``).
 """
 
 from __future__ import annotations
@@ -31,10 +36,10 @@ from scpp_tpu_torch import kernels
 from scpp_tpu_torch.solver.ipm import IPMSettings
 from scpp_tpu_torch.solver.ipm_staged import (StagedSolverResult,
                                              _equilibrate, _post)
-from scpp_tpu_torch.solver.mono_blocks import (block_tridiag_factor,
-                                               block_tridiag_solve)
+from scpp_tpu_torch.solver.mono_blocks import mono_inverse_factor
 from scpp_tpu_torch.solver.mono_cones import MonoCones
 from scpp_tpu_torch.solver.staged import StagedProgram
+from scpp_tpu_torch.solver.staged_kkt import cr_factor, cr_solve
 
 __all__ = ["mono_supported", "mono_solve", "solve_staged_ipm_mono"]
 
@@ -138,10 +143,10 @@ def _solve_block(statics, AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal,
                        torch.cat([Dxy.transpose(-1, -2), Dyy], dim=3)], dim=2)
         O = torch.cat([torch.cat([Hxn[:, :-1], AT[:, :-1, w:, :]], dim=3),
                        torch.zeros((B, K - 1, me, w + me), **f)], dim=2)
-        return block_tridiag_factor(D, O, w)
+        return cr_factor(D, O, w, inverse_factor=mono_inverse_factor)
 
     def kkt_raw_solve(fact, r_x, r_y):
-        sol = block_tridiag_solve(fact, torch.cat([r_x, r_y], dim=2), w)
+        sol = cr_solve(fact, torch.cat([r_x, r_y], dim=2))
         return sol[..., :w], sol[..., w:]
 
     def kkt_solve(fact, rep, f1, f2, rzWd, refine_steps):
@@ -287,6 +292,13 @@ def _solve_block(statics, AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal,
 # the kernel and its wrapper
 # ---------------------------------------------------------------------------
 
+# The kernel's phase counters (csrc/mono_ipm_body.cuh, enum Phase), in
+# order; a (B, PROF_SLOTS) int64 buffer holds each block's clock64()
+# cycles per phase, then its whole run in cycles and in globaltimer ns.
+PHASES = ("init", "residuals", "nt_scaling", "assembly", "block_factors",
+          "level_products", "kkt_solves", "cone_step", "rest")
+PROF_SLOTS = len(PHASES) + 2
+
 _IN_NAMES = ("AT", "GT", "b_eq", "h", "c", "d_eq", "d_c", "E_st", "scal",
              "warm_x", "warm_y", "warm_z")
 
@@ -308,14 +320,18 @@ def _load_lib():
         lib.mono_ipm_launch.argtypes = (
             [c_int, c_void_p] + [c_int] * 6 + [ctypes.POINTER(c_int)]
             + [c_int] * 4 + [c_double] * 5
-            + [ctypes.POINTER(c_void_p), ctypes.POINTER(c_void_p), c_void_p])
+            + [ctypes.POINTER(c_void_p), ctypes.POINTER(c_void_p), c_void_p,
+               c_void_p])
         lib.mono_ipm_launch.restype = c_int
+        lib.mono_ipm_prof_slots.argtypes = []
+        lib.mono_ipm_prof_slots.restype = c_int
     return lib
 
 
-def _mono_cuda(statics, *ins, part="full"):
+def _mono_cuda(statics, *ins, part="full", prof=None):
     """Launch csrc/mono_ipm.cu on the current stream; raises on anything
-    it does not take or on a failed launch."""
+    it does not take or on a failed launch. ``prof``, an int64 (B,
+    PROF_SLOTS) tensor on the same card, receives the phase counters."""
     code = part_code(part)
     K, w, me, l, soc_sizes, st = statics
     mc = l + sum(soc_sizes)
@@ -333,7 +349,16 @@ def _mono_cuda(statics, *ins, part="full"):
                              f"{(B,) + shp}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if prof is not None and (prof.dtype != torch.int64 or prof.device != dev
+                             or tuple(prof.shape) != (B, PROF_SLOTS)
+                             or not prof.is_contiguous()):
+        raise ValueError(f"prof: {prof.dtype} {tuple(prof.shape)} on "
+                         f"{prof.device}, expected a contiguous int64 "
+                         f"{(B, PROF_SLOTS)} on {dev}")
     lib = _load_lib()
+    if lib.mono_ipm_prof_slots() != PROF_SLOTS:
+        raise RuntimeError("csrc/mono_ipm.cu counts other phases than "
+                           "ipm_mono.PHASES")
     outs = [torch.empty((B,) + s, dtype=dtype, device=dev) for s in out_shapes]
     work = torch.empty(B * lib.mono_ipm_workspace_elems(K, w, me, mc),
                        dtype=dtype, device=dev)
@@ -346,19 +371,23 @@ def _mono_cuda(statics, *ins, part="full"):
             dtype.itemsize, stream, B, K, w, me, l, len(soc_sizes), soc,
             st.iters, st.refine_steps, int(st.mono_track_best), code,
             st.eps_reg, st.rho_lift, st.eps_feas, st.step_frac,
-            st.warm_kappa, in_ptrs, out_ptrs, work.data_ptr())
+            st.warm_kappa, in_ptrs, out_ptrs, work.data_ptr(),
+            None if prof is None else prof.data_ptr())
     if err != 0:
         raise RuntimeError(f"mono_ipm kernel launch failed: CUDA error {err}")
     kernels.launches["mono_ipm"] += 1
     return tuple(outs)
 
 
-def mono_solve(statics, *ins, part="full"):
+def mono_solve(statics, *ins, part="full", prof=None):
     """The monolithic solve on ``_prep``'s 12 inputs, or the piece of it
     that ``part`` names: the CUDA kernel for tensors on the card, the
-    plain ``_solve_block`` for CPU tensors."""
+    plain ``_solve_block`` for CPU tensors. ``prof`` (kernel only) takes
+    the phase counters: see ``PHASES``."""
     if ins[0].is_cuda:
-        return _mono_cuda(statics, *ins, part=part)
+        return _mono_cuda(statics, *ins, part=part, prof=prof)
+    if prof is not None:
+        raise ValueError("phase counters exist only in the CUDA kernel")
     return _solve_block(statics, *ins, part=part)
 
 

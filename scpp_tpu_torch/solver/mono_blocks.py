@@ -3,15 +3,12 @@
 
 The stage blocks are quasidefinite: M = L S L^T with the signature
 S = diag(+1 x p, -1 x (W - p)) (p = w primal columns, then the me dual
-ones). The reference factors the block-tridiagonal system by cyclic
-reduction, which existed for the TPU's vector width; this port uses the
-sequential stage recursion that the CUDA kernel (csrc/mono_ipm_body.cuh)
-runs, which gives the same solution up to rounding:
-
-    D'_0 = D_0,   D'_k = L_k S L_k^T,   P_k = L_k^{-1} O_k^T,
-    D'_{k+1} = D_{k+1} - P_k^T S P_k
-
-with O_k = M[k+1, k]. Each block is factored as the reference's
+ones). The monolithic IPM factors the block-tridiagonal system by cyclic
+reduction, as the reference's ``mono_cr_factor`` does: the level loop
+is ``staged_kkt.cr_factor`` with :func:`mono_inverse_factor` as its block
+inverse factor, and the solve ``staged_kkt.cr_solve``; the CUDA kernel
+(csrc/mono_ipm_body.cuh) runs the same order. Each block is factored as
+the reference's
 ``signed_chol_inv`` factors it, in 8-column panels with every pivot
 floored: column j takes t_j = max(s_j T_jj, 1e-30) and divides the rows
 of its own panel by sqrt(t_j) and the rows below that panel by
@@ -27,16 +24,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["signed_chol_inv", "block_tridiag_factor", "block_tridiag_solve"]
+__all__ = ["signed_chol_inv", "mono_inverse_factor"]
 
 PIVOT_FLOOR = 1e-30
 PANEL = 8
-
-
-def _signature(W: int, p: int, like):
-    sig = torch.ones(W, dtype=like.dtype, device=like.device)
-    sig[p:] = -1.0
-    return sig
 
 
 def _floored_signed_chol(M, p: int, panel: int = PANEL):
@@ -82,47 +73,7 @@ def signed_chol_inv(M, p: int):
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
-def block_tridiag_factor(D, O, p: int):
-    """D (B, K, W, W) diagonal blocks, O (B, K-1, W, W) sub-diagonal
-    blocks (M[k+1, k] = O[k]) -> the per-stage lists (L_k^{-1},
-    L_k^{-T} S, P_k, P_k^T S) that :func:`block_tridiag_solve` uses
-    (products with S = diag(+-1) are exact, so folding S in changes no
-    rounding)."""
-    K, W = D.shape[1], D.shape[-1]
-    sig = _signature(W, p, D)
-    Linvs, Ps = [], []
-    Dk = D[:, 0]
-    for k in range(K):
-        _, Linv = signed_chol_inv(Dk, p)
-        Linvs.append(Linv)
-        if k + 1 < K:
-            Pk = Linv @ O[:, k].transpose(-1, -2)
-            Ps.append(Pk)
-            Dk = D[:, k + 1] - Pk.transpose(-1, -2) @ (sig[:, None] * Pk)
-    Linv = torch.stack(Linvs, 1)
-    P = torch.stack(Ps, 1)
-    return (Linvs, (Linv.transpose(-1, -2) * sig).unbind(1), Ps,
-            (P.transpose(-1, -2) * sig).unbind(1))
-
-
-def block_tridiag_solve(fact, b, p: int):
-    """Solve M x = b for b (B, K, W) with the factor of
-    :func:`block_tridiag_factor`:
-    t_k = L_k^{-1} v_k, v_{k+1} = b_{k+1} - P_k^T S t_k, then
-    x_k = L_k^{-T} S (t_k - P_k x_{k+1}) from the last stage back."""
-    Linv, LinvTS, P, PTS = fact
-    K = len(Linv)
-    bs = b[..., None].unbind(1)
-    ts = []
-    v = bs[0]
-    for k in range(K):
-        t = Linv[k] @ v
-        ts.append(t)
-        if k + 1 < K:
-            v = bs[k + 1] - PTS[k] @ t
-    x = LinvTS[K - 1] @ ts[K - 1]
-    xs = [x]
-    for k in range(K - 2, -1, -1):
-        x = LinvTS[k] @ (ts[k] - P[k] @ x)
-        xs.append(x)
-    return torch.stack(xs[::-1], 1)[..., 0]
+def mono_inverse_factor(M, p: int):
+    """L^{-1} of :func:`signed_chol_inv`: the block inverse factor of the
+    monolithic IPM's cyclic reduction (``staged_kkt.cr_factor``)."""
+    return signed_chol_inv(M, p)[1]

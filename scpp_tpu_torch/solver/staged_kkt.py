@@ -82,13 +82,16 @@ def _sandwich(X, sig, Y):
     return (X * sig[:, None]).transpose(-1, -2) @ Y
 
 
-def cr_factor(D, O, p: int):
+def cr_factor(D, O, p: int, inverse_factor=_inverse_factor):
     """Cyclic-reduction factorization of the signed block-tridiagonal M.
 
     D: (B, K, w, w), O: (B, K-1, w, w). Returns ``(levels, Linv_root, p)``
     with one ``(Linv, R, Q)`` per level, each (B, n_odd, w, w), and the
     root's inverse factor (B, w, w). The level sizes are static functions
-    of K (:func:`level_sizes`)."""
+    of K (:func:`level_sizes`). ``inverse_factor(M, p)`` gives L^{-1} of
+    a batch of blocks M = L S L'; the monolithic IPM passes the pivot-
+    floored ``mono_blocks.signed_chol_inv``, which makes this the
+    reference's ``mono_cr_factor``."""
     Bn, w = D.shape[0], D.shape[-1]
     sig = _sig(w, p, D)
     levels = []
@@ -101,7 +104,7 @@ def cr_factor(D, O, p: int):
         O_pad = torch.cat([O, D.new_zeros((Bn, 1, w, w))], dim=1)[:, :2 * n_odd]
         O_left = O_pad[:, 0::2]                  # M[j, j-1], j = 2m+1
         O_rt = O_pad[:, 1::2]                    # M[j+1, j] -> M[j, j+1]'
-        Linv = _inverse_factor(D[:, 1::2], p)
+        Linv = inverse_factor(D[:, 1::2], p)
         R = Linv @ O_left
         Q = Linv @ O_rt.transpose(-1, -2)
 
@@ -112,7 +115,7 @@ def cr_factor(D, O, p: int):
 
         levels.append((Linv, R, Q))
         D, O, n = D_even, O_even, n_even
-    return tuple(levels), _inverse_factor(D[:, 0], p), p
+    return tuple(levels), inverse_factor(D[:, 0], p), p
 
 
 def level_sizes(K: int):

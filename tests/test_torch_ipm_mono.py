@@ -4,7 +4,9 @@ The port's ``_prep`` -> plain ``_solve_block`` -> ``_post`` against the
 reference's ``_prep`` / ``_solve_block`` (under ``jax.jit``, one scenario
 per call, so its iteration count is per scenario as the port's is) /
 ``_post``, on test_ipm_mono's synthetic bounded stage-banded SOCPs
-(K=6, w=8, me=8), in float64. The tolerances are test_ipm_mono's.
+(K=6, w=8, me=8), in float64. The tolerances are test_ipm_mono's. The
+plain KKT factor and solve, cyclic reduction as in the reference, are
+held to the reference's ``mono_cr_factor`` / ``mono_cr_solve`` to 1e-10.
 The kernel itself is held against the same plain version in
 test_torch_mono_kernel.py.
 """
@@ -22,9 +24,11 @@ from scpp_tpu.solver import mono_blocks as j_blocks
 from scpp_tpu.solver.ipm import IPMSettings as JIPMSettings
 from scpp_tpu.solver.staged import StagedProgram as JStagedProgram
 from scpp_tpu_torch import convert, kernels
-from scpp_tpu_torch.solver import ipm_mono, ipm_staged, mono_blocks
+from scpp_tpu_torch.solver import (ipm_mono, ipm_staged, mono_blocks,
+                                   staged_kkt)
 from scpp_tpu_torch.solver.ipm import IPMSettings
 from scpp_tpu_torch.solver.ipm_staged import solve_staged_ipm
+from test_torch_cr_kernel import qd_blocks
 from test_torch_mono_kernel import breakdown_block
 
 K, W, ME, L = 6, 8, 8, 5
@@ -158,9 +162,11 @@ def check_against_reference(ref, got, i):
         # a Cholesky pivot fell to the 1e-30 floor (both floor it the same
         # way) and the next step was non-finite. Which iteration's nearly
         # singular KKT system breaks down first is decided by rounding:
-        # the port stops seed 1 at another iteration when it solves it
-        # alone than in this batch of three. So the count is held to an
-        # early stop in both runs; the best iterate is held above.
+        # both factor by cyclic reduction in the same order, and the cold
+        # seed 1 stops at the reference's iteration, but the warm one
+        # stops one iteration earlier (the block inverses still round
+        # differently; ROADMAP section 3, item 6). So the count is held
+        # to an early stop in both runs; the best iterate is held above.
         assert it_got < SET.iters and it_ref < SET.iters
     np.testing.assert_allclose(float(diag_got[0, 0]), float(diag_ref[0, 0]),
                                rtol=1e-3, atol=1e-12)
@@ -275,6 +281,40 @@ def test_signed_factor_floors_pivots_as_reference(seed, broken):
             np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-12)
     if broken in ((7,), (15,), (20,)):
         assert np.isfinite(Lt).all() and np.abs(Lt).max() > 1e14
+
+
+@pytest.mark.parametrize("K", [5, 9])
+def test_plain_cr_factor_and_solve_match_reference(K):
+    """The monolithic IPM's plain KKT factor (``staged_kkt.cr_factor``'s
+    level loop with ``mono_blocks.mono_inverse_factor``) and solve
+    (``staged_kkt.cr_solve``) against the reference's ``mono_cr_factor``
+    / ``mono_cr_solve`` on two seeded random signed block-tridiagonal
+    systems (w=16 primal and 8 dual columns, the reference's 8-column
+    panels), level by level and at the root, float64 to 1e-10 relative.
+    K=5 reduces 5, 3, 2 blocks, K=9 reduces 9, 5, 3, 2."""
+    p, q = 16, 8
+    rng = np.random.default_rng(K)
+    D, O = qd_blocks(rng, 2, K, p, q)
+    b = rng.standard_normal((2, K, p + q))
+    levels_j, root_j = jax.jit(j_blocks.mono_cr_factor, static_argnums=2)(
+        jnp.asarray(D.numpy()), jnp.asarray(O.numpy()), p)
+    x_j = jax.jit(j_blocks.mono_cr_solve, static_argnums=2)(
+        (levels_j, root_j), jnp.asarray(b), p)
+
+    def rel(a, ref):
+        ref = np.asarray(ref)
+        return float(np.abs(a.numpy() - ref).max() / (1 + np.abs(ref).max()))
+
+    fact = staged_kkt.cr_factor(D, O, p,
+                                inverse_factor=mono_blocks.mono_inverse_factor)
+    levels, root, _ = fact
+    assert len(levels) == len(levels_j) == len(
+        staged_kkt.level_sizes(K))
+    for lv, lv_j in zip(levels, levels_j):
+        for a, a_j in zip(lv, lv_j):
+            assert rel(a, a_j) <= 1e-10
+    assert rel(root, root_j) <= 1e-10
+    assert rel(staged_kkt.cr_solve(fact, torch.tensor(b)), x_j) <= 1e-10
 
 
 def test_cost_scale_median_of_even_count():
