@@ -1118,6 +1118,25 @@ def run_calibration(tag):
     return failed, launches, mono, measures, smem
 
 
+def print_products(tag, measures):
+    """One line per probe of the register-tiled products (C, D, bdot,
+    bdot96: bmm; D2: mm2d), float32 at the probe's 50 steps: the kernel's
+    device time, the one-call yardstick's and their ratio, the bound and
+    the share of it reached, the per-SM floor (``calib.sm_floor_ms``) and
+    the share of that."""
+    from scpp_tpu_torch.diag import calib
+    for name, pr in calib.PROBES.items():
+        if pr.fn not in ("bmm", "mm2d"):
+            continue
+        m = measures[name]
+        print(f"kernel time {tag}: calib {name} ({pr.fn}) {m['ms']:.4f} ms; "
+              f"library {m['library_ms']:.4f} ms, kernel / library "
+              f"{m['ms'] / m['library_ms']:.3f}; bound {m['bound_ms']:.4f} "
+              f"ms ({m['bound_by']}), {m['bound_ms'] / m['ms']:.1%} of it "
+              f"reached; per-SM floor {m['sm_floor_ms']:.4f} ms, "
+              f"{m['sm_floor_ms'] / m['ms']:.1%} of it reached")
+
+
 def probe_entries(launches, measures, max_err, smem_host_ms, smem_ms,
                   smem_plain_ms, smem_err):
     """One kernels-line entry per probe function: the numbers of its
@@ -1327,6 +1346,7 @@ def main():
     ok_parts, parts = check_mono_parts(tag, statics, prog64, prog32)
     failed, probe_launches, parts_launches, probe_measures, smem = \
         run_calibration(tag)
+    print_products(tag, probe_measures)
     big = calib.SMEM_SIZES[2]
     smem_host_ms = cuda_ms(lambda: calib.smem_probe(big, check=False), 20)
     smem_ms = calib.graph_ms(lambda: calib.smem_probe(big, check=False))

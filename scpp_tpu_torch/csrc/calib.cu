@@ -10,15 +10,35 @@
 // card: a 48-column rank-1 sweep, batched 48- and 96-wide products, FMA
 // matvecs, elementwise passes, strided rows, and the shared-memory ceiling.
 //
-// What bounds them: the products and sweeps are bound by operations
-// (fp32 FMA loops through shared memory, no tensor cores: TF32 stays off)
-// and, in these simple versions, by one block per matrix and a barrier
-// per sweep column; the elementwise probes and the copies by bytes. Each
-// block keeps its matrix in shared memory for the whole loop (a (96, 96)
-// product needs three 36.9 KB tiles in float32, above the 48 KB a block
-// gets without opting in, so every launch sets the dynamic shared memory
-// it asks for). Making them fast is not their purpose: chip_smoke.py and
-// diag/mono_calib.py print each one's time beside its bound.
+// What bounds them: the sweeps, matvecs and the other simple bodies are
+// bound by operations (fp32 FMA loops through shared memory, no tensor
+// cores: TF32 stays off) and, in their simple versions, by one block per
+// matrix and a barrier per sweep column; the elementwise probes and the
+// copies by bytes. Each block keeps its matrix in shared memory for the
+// whole loop, and every launch sets the dynamic shared memory it asks for
+// (a (96, 96) product needs 110.6 KB in float32, above the 48 KB a block
+// gets without opting in). Making those fast is not their purpose:
+// chip_smoke.py and diag/mono_calib.py print each one's time beside its
+// bound.
+//
+// The two products, bmm and mm2d, price what a 48- or 96-wide fp32
+// product costs on one SM, and are built for it. Their dependent steps
+// keep one matrix (or one set of rows) on one SM, so the least time is
+// FMA issue on that SM: 50 steps of a 96 x 96 product are 884,736 FMAs a
+// step, 0.175 ms at 128 FMAs a cycle. What bounds them below that is the
+// shared-memory pipe that feeds the operands (128 bytes a cycle to the
+// lanes), then load latency with one warp a scheduler, and a barrier a
+// step. The design (calib_body.cuh): each thread keeps a tile of the
+// outputs in registers for the whole loop and reads one k's operands as
+// 8- or 16-byte vectors, a pair of k or two ahead of their FMAs, in a
+// branch-free k loop of 16 k (bmm) or 48 k (mm2d) a pass. bmm: 6 x 6
+// tiles (256 threads at w = 96, 64 at w = 48, one matrix a block, so the
+// 240 matrices of w = 48 are all resident at once); Bm = a + s acc is
+// double-buffered in shared memory, so a step costs one barrier. mm2d: a
+// row's step needs only that row, so a warp owns 4 rows (a lane 4 rows x
+// 3 columns), publishes its X = a + acc with __syncwarp alone, and no
+// block barrier runs in the loop; top = a[:w] is copied in once with
+// cp.async; 16 rows a block give 120 blocks for the 1920 rows.
 //
 // Interface: plain C functions, loaded with ctypes; each launches on the
 // given stream, allocates nothing, and returns the cudaError_t of the
@@ -34,7 +54,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMvThreads = 128;   // one thread per matvec output (<= 128)
-constexpr int kRowsPerBlock = 16;  // mm2d rows per block
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -53,7 +72,7 @@ chol_sweep_kernel(int w, int masked, const T* a, T* out, int iters) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(calib::kBmmMaxThreads)
 bmm_kernel(int w, T s, const T* a, T* out, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const long long off = (long long)blockIdx.x * w * w;
@@ -62,13 +81,11 @@ bmm_kernel(int w, T s, const T* a, T* out, int iters) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(calib::kMmThreads)
 mm2d_kernel(int rows, int w, const T* a, T* out, int iters) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int nr = rows - r0 < kRowsPerBlock ? rows - r0 : kRowsPerBlock;
-  calib::mm2d_block<T>(w, r0, nr, a, out, iters,
-                       reinterpret_cast<T*>(smem_raw));
+  calib::mm2d_block<T>(rows, w, blockIdx.x * calib::kMmRowsPerBlock, a, out,
+                       iters, reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T>
@@ -186,17 +203,19 @@ extern "C" int calib_chol_sweep(int elem_bytes, void* stream, int n, int w,
 
 extern "C" int calib_bmm(int elem_bytes, void* stream, int n, int w,
                          double s, const void* a, void* out, int iters) {
-  if (w < 1) return (int)cudaErrorInvalidValue;
-  CALIB_DISPATCH(go(bmm_kernel<T>, n, kThreads, sizeof(T) * 3 * w * w,
-                    stream, w, (T)s, (const T*)a, (T*)out, iters))
+  if (w < 1 || w > calib::kBmmMaxWidth) return (int)cudaErrorInvalidValue;
+  CALIB_DISPATCH(go(bmm_kernel<T>, n, calib::bmm_threads(w),
+                    sizeof(T) * calib::bmm_smem(w), stream, w, (T)s,
+                    (const T*)a, (T*)out, iters))
 }
 
 extern "C" int calib_mm2d(int elem_bytes, void* stream, int rows, int w,
                           const void* a, void* out, int iters) {
-  if (w < 1 || rows < w) return (int)cudaErrorInvalidValue;
-  CALIB_DISPATCH(go(mm2d_kernel<T>, blocks_of(rows, kRowsPerBlock), kThreads,
-                    sizeof(T) * (w * w + 2 * kRowsPerBlock * w), stream,
-                    rows, w, (const T*)a, (T*)out, iters))
+  if (w < 1 || w > calib::kMmMaxWidth || rows < w)
+    return (int)cudaErrorInvalidValue;
+  CALIB_DISPATCH(go(mm2d_kernel<T>, blocks_of(rows, calib::kMmRowsPerBlock),
+                    calib::kMmThreads, sizeof(T) * calib::mm2d_smem(w),
+                    stream, rows, w, (const T*)a, (T*)out, iters))
 }
 
 extern "C" int calib_matvec(int elem_bytes, void* stream, int n, int R, int C,

@@ -47,7 +47,8 @@ __all__ = ["FUNCTIONS", "PROBES", "CALIB_NAMES", "PROBE_NAMES",
            "ew", "chol_sweep", "bmm", "mm2d", "matvec", "rank1",
            "chol8flat", "transpose", "reshape88", "slice_mix",
            "smem_probe", "smem_probe_plain", "SMEM_SIZES", "probe_inputs",
-           "probe", "plain", "work", "library", "measure", "card"]
+           "probe", "plain", "work", "library", "measure", "sm_floor_ms",
+           "card"]
 
 FUNCTIONS = kernels.CALIB_FUNCTIONS
 
@@ -60,6 +61,11 @@ REPLACES = {"smem_probe": "tools/diag/mono_calib.py:180",
             "reshape88": "tools/diag/mono_probe.py:15"}
 for _f in FUNCTIONS:
     REPLACES.setdefault(_f, "tools/diag/mono_calib.py:43")
+
+# The products' geometry (csrc/calib_body.cuh, which the host tests read
+# back): bmm and mm2d take w <= 96; mm2d runs 16 rows a block.
+PRODUCT_MAX_WIDTH = 96
+MM2D_ROWS_PER_BLOCK = 16
 
 # The shared-memory sizes the probe asks for: 48 KB (the static limit),
 # 96 KB, the 227 KB a block may opt into on Hopper, and one KB more.
@@ -247,22 +253,30 @@ def chol_sweep(a, iters, masked=False):
 
 
 def bmm(a, iters, s=1.0):
-    """``acc + a @ (a + s * acc)`` on (n, w, w)."""
+    """``acc + a @ (a + s * acc)`` on (n, w, w); the kernel takes
+    w <= 96."""
     if not a.is_cuda:
         return _bmm_plain(a, iters, s)
     n, w = a.shape[0], a.shape[-1]
     _check("bmm", [a], [(n, w, w)])
+    if w > PRODUCT_MAX_WIDTH:
+        raise ValueError(f"bmm: w = {w}, the kernel takes w <= "
+                         f"{PRODUCT_MAX_WIDTH}")
     return _launch("bmm", [a], a.shape, [n, w, float(s)], iters)
 
 
 def mm2d(a, iters):
-    """``acc + (a + acc) @ a[:w]`` on (rows, w), rows >= w."""
+    """``acc + (a + acc) @ a[:w]`` on (rows, w), rows >= w; the kernel
+    takes w <= 96."""
     if not a.is_cuda:
         return _mm2d_plain(a, iters)
     rows, w = a.shape
     if rows < w:
         raise ValueError(f"mm2d: {rows} rows, fewer than the {w} columns")
     _check("mm2d", [a], [(rows, w)])
+    if w > PRODUCT_MAX_WIDTH:
+        raise ValueError(f"mm2d: w = {w}, the kernel takes w <= "
+                         f"{PRODUCT_MAX_WIDTH}")
     return _launch("mm2d", [a], a.shape, [rows, w], iters)
 
 
@@ -659,6 +673,30 @@ def graph_ms(fn, reps=10):
 
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12             # fp32 outside the tensor cores, 700 W
+H100_SMS = 132
+FMA_PER_SM_CYCLE = {torch.float32: 128, torch.float64: 64}
+SM_CLOCK_HZ = 1.98e9                # the clock64 rate read on the card
+
+
+def sm_floor_ms(name, ins, iters):
+    """The least time of a product probe whose dependent steps keep each
+    matrix (bmm) or each block's rows (mm2d, 16 a block) on one SM: the
+    busiest SM's FMAs at 128 fp32 (64 fp64) FMAs a cycle and 1.98 GHz.
+    None for the other functions."""
+    pr = PROBES[name]
+    a = ins[0]
+    if pr.fn == "bmm":
+        n, w = a.shape[0], a.shape[-1]
+        units, fmas = n, w ** 3
+    elif pr.fn == "mm2d":
+        rows, w = a.shape
+        units = -(-rows // MM2D_ROWS_PER_BLOCK)
+        fmas = MM2D_ROWS_PER_BLOCK * w * w
+    else:
+        return None
+    per_sm = -(-units // H100_SMS)
+    cycles = per_sm * fmas * iters / FMA_PER_SM_CYCLE[a.dtype]
+    return cycles / SM_CLOCK_HZ * 1e3
 
 
 def measure(name, reps=5, plain_reps=3):
@@ -667,7 +705,8 @@ def measure(name, reps=5, plain_reps=3):
     best of ``reps`` by CUDA events, the host's launch path included as in
     the reference's timing), its plain version, the library loop where
     one exists (``library_ms`` and ``library_host_ms``, the same two
-    ways), and the bound."""
+    ways), the bound and, for the products, the per-SM floor
+    (``sm_floor_ms``)."""
     pr = PROBES[name]
     iters = pr.iters
     ins = probe_inputs(name)
@@ -686,6 +725,7 @@ def measure(name, reps=5, plain_reps=3):
                 library_host_ms=library_host_ms, library=lib_desc,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes > t_ops else "operations",
+                sm_floor_ms=sm_floor_ms(name, ins, iters),
                 bytes=nbytes, flops=flops)
 
 

@@ -18,7 +18,9 @@ E3, E4 and ``matvecdot`` do not trace in JAX as written (a (240,68) added
 to a (240,64), and a 68 contracted against a 64): one test shows that,
 another that the port's intended matvec is E1's function on the
 transposed data. ``csrc/calib_body.cuh`` is compiled with g++ under
-``csrc/host_shim.h`` and held against the plain versions. The ``cuda``
+``csrc/host_shim.h`` and held against the plain versions, every probe
+and, for the register-tiled products, a full 256-thread block and ragged
+shapes. The ``cuda``
 tests launch ``csrc/calib.cu`` and skip without a GPU; JAX is imported
 only by the tests that run the reference, so they also run on a machine
 that has only the port's dependencies:
@@ -380,8 +382,9 @@ def test_probe_table_matches_the_reference_scripts():
 
 def test_work_and_library_yardsticks():
     """The bound counts as the functions are defined (C: 2 w^3 + 2 w^2 per
-    matrix and step), and a library call for every probe but the sweeps,
-    which agrees with the plain version."""
+    matrix and step), a library call for every probe but the sweeps,
+    which agrees with the plain version, and the products' per-SM
+    floor."""
     ins = calib.probe_inputs("C", "cpu", n=2)
     nbytes, flops = calib.work("C", ins, 3)
     assert nbytes == 2 * 2 * 48 * 48 * 4
@@ -397,6 +400,14 @@ def test_work_and_library_yardsticks():
         ref = calib._plain_call(name, ins, STEPS)
         assert rel(got.reshape(ref.shape).numpy(), ref.numpy()) <= F64_TOL, \
             name
+    # the products' per-SM floor: C's 240 matrices two an SM, D2's 120
+    # blocks of 16 rows one an SM, at 128 fp32 FMAs a cycle and 1.98 GHz
+    floor = calib.sm_floor_ms
+    assert floor("C", calib.probe_inputs("C", "cpu"), 50) == pytest.approx(
+        2 * 48 ** 3 * 50 / 128 / 1.98e6)
+    assert floor("D2", calib.probe_inputs("D2", "cpu"), 50) == \
+        pytest.approx(16 * 96 ** 2 * 50 / 128 / 1.98e6)
+    assert floor("A1", calib.probe_inputs("A1", "cpu"), 50) is None
 
 
 def test_cpu_tensors_take_the_plain_version_and_wrappers_check():
@@ -425,6 +436,8 @@ HARNESS = r"""
 thread_local Dim3 threadIdx;
 Dim3 blockDim;
 std::barrier<>* g_barrier;
+SpinBarrier** g_warp_barriers;
+unsigned long long (*g_warp_xch)[2][32];
 
 // blocks one after another, each with nt std::threads and its own
 // shared memory, NaN-filled so that a read before a write shows
@@ -435,6 +448,7 @@ void blocks(int nb, int nt, long long smem, F f) {
     std::vector<T> sm(smem + 1, T(NAN));
     std::barrier<> bar(nt);
     g_barrier = &bar;
+    HostWarps warps(nt);
     std::vector<std::thread> th;
     for (int t = 0; t < nt; ++t)
       th.emplace_back([&, t] { threadIdx.x = t; f(b, sm.data()); });
@@ -452,18 +466,16 @@ extern "C" void chol_sweep_##S(int nt, int n, int w, int m, const T* a, T* o,\
     calib::chol_sweep_block<T>(w, m, a + b * w * w, o + b * w * w, it, sm);  \
   });                                                                        \
 }                                                                            \
-extern "C" void bmm_##S(int nt, int n, int w, double s, const T* a, T* o,    \
-                        int it) {                                            \
-  blocks<T>(n, nt, 3 * w * w, [&](int b, T* sm) {                            \
+extern "C" void bmm_##S(int n, int w, double s, const T* a, T* o, int it) { \
+  blocks<T>(n, calib::bmm_threads(w), calib::bmm_smem(w), [&](int b, T* sm) {\
     calib::bmm_block<T>(w, T(s), a + b * w * w, o + b * w * w, it, sm);      \
   });                                                                        \
 }                                                                            \
-extern "C" void mm2d_##S(int nt, int rows, int w, int per, const T* a, T* o, \
-                         int it) {                                           \
-  blocks<T>((rows + per - 1) / per, nt, w * w + 2 * per * w,                 \
+extern "C" void mm2d_##S(int rows, int w, const T* a, T* o, int it) {        \
+  const int per = calib::kMmRowsPerBlock;                                    \
+  blocks<T>((rows + per - 1) / per, calib::kMmThreads, calib::mm2d_smem(w),  \
             [&](int b, T* sm) {                                              \
-    const int r0 = b * per, nr = rows - r0 < per ? rows - r0 : per;          \
-    calib::mm2d_block<T>(w, r0, nr, a, o, it, sm);                           \
+    calib::mm2d_block<T>(rows, w, b * per, a, o, it, sm);                    \
   });                                                                        \
 }                                                                            \
 extern "C" void matvec_##S(int nt, int n, int R, int C, int tr, double s,    \
@@ -500,6 +512,12 @@ extern "C" void slice_mix_##S(int nt, int n, int w, const T* a, T* o,        \
 
 EXPORT(double, f64)
 EXPORT(float, f32)
+
+// the products' launch geometry, as csrc/calib.cu takes it
+extern "C" int bmm_threads(int w) { return calib::bmm_threads(w); }
+extern "C" int bmm_max_width() { return calib::kBmmMaxWidth; }
+extern "C" int mm2d_rows_per_block() { return calib::kMmRowsPerBlock; }
+extern "C" int mm2d_max_width() { return calib::kMmMaxWidth; }
 """
 
 
@@ -532,7 +550,9 @@ NTHREADS = 8       # threads per host block: exercises the strided loops
 
 def host_run(lib, name, ins, iters):
     """The probe through the host-built body, as csrc/calib.cu launches
-    it (mm2d: 16 rows a block)."""
+    it: the products at their own geometry (bmm: one 6 x 6 tile a thread,
+    ``bmm_threads(w)`` threads; mm2d: 16 rows and 128 threads a block),
+    the other bodies at NTHREADS threads a block."""
     pr = calib.PROBES[name]
     a = np.ascontiguousarray(ins[0].numpy())
     suf = "f64" if a.dtype == np.float64 else "f32"
@@ -555,14 +575,13 @@ def host_run(lib, name, ins, iters):
     elif pr.fn == "chol8flat":
         fn(I(a.shape[0]), ptr(a), ptr(out), I(iters))
     elif pr.fn == "mm2d":
-        fn(I(NTHREADS), I(a.shape[0]), I(a.shape[1]), I(16), ptr(a),
-           ptr(out), I(iters))
+        fn(I(a.shape[0]), I(a.shape[1]), ptr(a), ptr(out), I(iters))
     elif pr.fn == "chol_sweep":
         fn(I(NTHREADS), I(a.shape[0]), I(a.shape[-1]),
            I(kw.get("masked", False)), ptr(a), ptr(out), I(iters))
     elif pr.fn == "bmm":
-        fn(I(NTHREADS), I(a.shape[0]), I(a.shape[-1]), D(kw.get("s", 1.0)),
-           ptr(a), ptr(out), I(iters))
+        fn(I(a.shape[0]), I(a.shape[-1]), D(kw.get("s", 1.0)), ptr(a),
+           ptr(out), I(iters))
     else:
         fn(I(NTHREADS), I(a.shape[0]), I(a.shape[-1]), ptr(a), ptr(out),
            I(iters))
@@ -582,6 +601,61 @@ def test_kernel_body_matches_plain(host_lib, name):
         tol = F64_TOL if dtype == torch.float64 else F32_TOL.get(
             fn, F32_FMA_TOL)
         assert rel(got, ref) <= tol, (dtype, rel(got, ref))
+
+
+# The register-tiled products beyond the probes' shapes: one block at the
+# card's own thread count (bmm: one 96 x 96 matrix, 256 threads; mm2d: 128
+# threads), and ragged edges (bmm: w = 40 and 50, not multiples of the
+# 6-wide tile, 50 also past 8 x 8 tiles; mm2d: 50 and 97 rows, not
+# multiples of the 16 a block, and w = 40, not a multiple of 32). Three
+# steps, so that each of the two operand buffers is written twice.
+PRODUCT_CASES = {"bmm-96": ("bmm", (1, 96, 96), 1.0),
+                 "bmm-40": ("bmm", (3, 40, 40), 1.0),
+                 "bmm-50": ("bmm", (2, 50, 50), 1e-6),
+                 "mm2d-96": ("mm2d", (97, 96), None),
+                 "mm2d-40": ("mm2d", (50, 40), None)}
+PRODUCT_STEPS = 3
+
+
+def product_case(case, dtype, device="cpu"):
+    """The case's input (uniform in [0, 1) from RandomState(3)) and its
+    plain result."""
+    fn, shape, s = PRODUCT_CASES[case]
+    a = torch.tensor(np.random.RandomState(3).rand(*shape), dtype=dtype,
+                     device=device)
+    if fn == "bmm":
+        return a, calib._bmm_plain(a, PRODUCT_STEPS, s)
+    return a, calib._mm2d_plain(a, PRODUCT_STEPS)
+
+
+@pytest.mark.parametrize("case", sorted(PRODUCT_CASES))
+def test_tiled_product_body_matches_plain(host_lib, case):
+    """The host-built bmm and mm2d bodies at their own launch geometry:
+    float64 to 1e-12, float32 to 1e-5, relative to 1 + max |plain|."""
+    fn, _, s = PRODUCT_CASES[case]
+    ptr = lambda x: ctypes.c_void_p(x.ctypes.data)   # noqa: E731
+    I = ctypes.c_int
+    for dtype, suf, tol in ((torch.float64, "f64", F64_TOL),
+                            (torch.float32, "f32", F32_FMA_TOL)):
+        a, ref = product_case(case, dtype)
+        a = a.numpy()
+        out = np.full_like(a, np.nan)
+        dims = ([I(a.shape[0]), I(a.shape[-1]), ctypes.c_double(s)]
+                if fn == "bmm" else [I(a.shape[0]), I(a.shape[1])])
+        getattr(host_lib, f"{fn}_{suf}")(*dims, ptr(a), ptr(out),
+                                         I(PRODUCT_STEPS))
+        assert np.isfinite(out).all()
+        assert rel(out, ref.numpy()) <= tol, (dtype, rel(out, ref.numpy()))
+
+
+def test_product_geometry_matches_the_wrappers(host_lib):
+    """The widths and rows a block that diag/calib.py states are the
+    body's, and bmm's launch covers its tiles in whole warps."""
+    assert host_lib.bmm_max_width() == calib.PRODUCT_MAX_WIDTH
+    assert host_lib.mm2d_max_width() == calib.PRODUCT_MAX_WIDTH
+    assert host_lib.mm2d_rows_per_block() == calib.MM2D_ROWS_PER_BLOCK
+    assert {w: host_lib.bmm_threads(w) for w in (40, 48, 50, 96)} == {
+        40: 64, 48: 64, 50: 96, 96: 256}
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +681,29 @@ def test_kernel_matches_plain_on_card(name):
         tol = F64_TOL if dtype == torch.float64 else F32_TOL.get(
             fn, F32_FMA_TOL)
         assert rel(got.cpu().numpy(), ref.cpu().numpy()) <= tol
+
+
+@pytest.mark.cuda
+def test_tiled_products_on_card():
+    """The host cases of the tiled products through their kernels, one
+    launch each, at the same tolerances; and w = 97 is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for case, (fn, _, s) in sorted(PRODUCT_CASES.items()):
+        for dtype, tol in ((torch.float64, F64_TOL),
+                           (torch.float32, F32_FMA_TOL)):
+            a, ref = product_case(case, dtype, "cuda")
+            before = kernels.launches[f"calib_{fn}"]
+            got = (calib.bmm(a, PRODUCT_STEPS, s) if fn == "bmm"
+                   else calib.mm2d(a, PRODUCT_STEPS))
+            torch.cuda.synchronize()
+            assert kernels.launches[f"calib_{fn}"] == before + 1
+            assert bool(torch.isfinite(got).all())
+            assert rel(got.cpu().numpy(), ref.cpu().numpy()) <= tol, case
+    with pytest.raises(ValueError, match="w <= 96"):
+        calib.bmm(torch.ones((1, 97, 97), device="cuda"), 1)
+    with pytest.raises(ValueError, match="w <= 96"):
+        calib.mm2d(torch.ones((97, 97), device="cuda"), 1)
 
 
 @pytest.mark.cuda
