@@ -4,7 +4,9 @@
 
 Phases, one line each: the card; the build of every kernel from
 ``scpp_tpu_torch/csrc``; each kernel held against its plain PyTorch
-version at the main path's shapes; the main path itself (bench.py's 64
+version at the main path's shapes (``cr_solve`` also at budgets of 1
+and 2 slots of its shared-memory ring, bit for bit against the full
+one); the main path itself (bench.py's 64
 dispersed RocketQuat K=30 SCvx solves at the flagship configuration,
 through ``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count
 of its kernel; the same solves on the fused dynamics path
@@ -367,7 +369,13 @@ def check_cr_kernel(tag, prog64, settings):
     number has grown like 1/mu, and a float32 factor there is far from
     the float64 solution for kernel and plain version alike (the solver
     refines against the exact operator), so there float32 is only
-    printed. Returns (ok, measures)."""
+    printed. Then the ring check: on the identity-scaling factor the
+    kernel at budgets of 1 slot, 2 slots and the full 227 KB must give
+    the same x bit for bit, in float32 and in float64. The time is taken
+    by CUDA events over 50 launches from the host, as the staged path
+    launches it, and over 50 launches replayed in a CUDA graph (the
+    device's time, no host work between launches); both on a factor
+    that its previous launch left in L2. Returns (ok, measures)."""
     from scpp_tpu_torch.solver import cr_fused, ipm_staged
     from scpp_tpu_torch.solver.staged_kkt import cr_factor, cr_solve
     ipm = ipm_staged._StagedIPM(prog64, settings)
@@ -416,8 +424,11 @@ def check_cr_kernel(tag, prog64, settings):
         if case == "identity scaling":
             out = dict(p32=p32, b32=b32, D=D.float(), O=O.float(),
                        max_abs_err=float((k32 - plain32).abs().max()))
+            ok &= check_cr_ring(p64, b64, p32, b32)
     p32, b32 = out["p32"], out["b32"]
+    from scpp_tpu_torch.diag import calib
     ms = cuda_ms(lambda: cr_fused.cr_solve_single(p32, b32), 50)
+    graph_ms = calib.graph_ms(lambda: cr_fused.cr_solve_single(p32, b32), 50)
     plain_ms = cuda_ms(lambda: cr_solve(cr_fused.cr_unpack(p32), b32), 10)
     # library: one batched LU solve against a precomputed dense LU of the
     # same 64 assembled (K Wp) x (K Wp) systems (the factor untimed, as
@@ -431,15 +442,58 @@ def check_cr_kernel(tag, prog64, settings):
     Wp = b32.shape[-1]
     nbytes, flops = cr_fused.cr_work(B, K, Wp, 4)
     b_ms, b_by = bound(nbytes, flops)
+    slots = [cr_fused.ring_slots(K, Wp, cr_fused.SMEM_BUDGET, eb)
+             for eb in (4, 8)]
     print(f"kernel time {tag}: cr_solve float32 {ms:.4f} ms per launch "
-          f"(B={B} K={K} Wp={Wp}, one right-hand side), plain "
-          f"{plain_ms:.3f} ms, library (batched lu_solve of the assembled "
-          f"{K * Wp}x{K * Wp} systems) {library_ms:.3f} ms (its distance "
-          f"from the kernel's x {dist(lib_x, k32.double()):.2e}); bound "
-          f"{b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e6:.1f} MFLOP)")
+          f"from the host, {graph_ms:.4f} ms in a CUDA graph (B={B} K={K} "
+          f"Wp={Wp}, one right-hand side; ring of {slots[0]} float / "
+          f"{slots[1]} double slots in 227 KB), plain {plain_ms:.3f} ms, "
+          f"library (batched lu_solve of the assembled {K * Wp}x{K * Wp} "
+          f"systems) {library_ms:.3f} ms (its distance from the kernel's x "
+          f"{dist(lib_x, k32.double()):.2e}); bound {b_ms:.5f} ms by "
+          f"{b_by} ({nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP): "
+          f"{100 * b_ms / ms:.1f}% of the bound from the host, "
+          f"{100 * b_ms / graph_ms:.1f}% in the graph; half the bound "
+          f"(at or below 2 x {b_ms:.5f} = {2 * b_ms:.5f} ms): from the host "
+          f"{'met' if ms <= 2 * b_ms else 'not met'}, in the graph "
+          f"{'met' if graph_ms <= 2 * b_ms else 'not met'}")
     return ok, dict(max_abs_err=out["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                    graph_ms=graph_ms)
+
+
+def check_cr_ring(p64, b64, p32, b32):
+    """cr_solve at budgets of 1 slot, 2 slots and the full 227 KB on the
+    same flagship factor: the ring's depth must not change x, bit for
+    bit, in float64 and in float32. Prints each depth's time a launch in
+    a CUDA graph."""
+    from scpp_tpu_torch.diag import calib
+    from scpp_tpu_torch.solver import cr_fused
+    ok = True
+    for label, packed, b in (("float64", p64, b64), ("float32", p32, b32)):
+        _, Kn, Wp = b.shape
+        most = cr_fused.ring_slots(Kn, Wp, cr_fused.SMEM_BUDGET,
+                                   b.element_size())
+        full = cr_fused.cr_solve_single(packed, b)
+        same, times = [], {}
+        for slots in (1, 2, None):
+            budget = (cr_fused.SMEM_BUDGET if slots is None else
+                      cr_fused.smem_bytes(Kn, Wp, slots, b.element_size()))
+            x = cr_fused.cr_solve_single(packed, b, smem_budget=budget)
+            torch.cuda.synchronize()
+            if slots is not None:
+                same.append(torch.equal(x, full))
+            times[slots or most] = calib.graph_ms(
+                lambda: cr_fused.cr_solve_single(packed, b, budget), 50)
+        good = all(same) and bool(torch.isfinite(full).all())
+        print(f"  cr_solve {label} at 1 and 2 ring slots vs the full "
+              f"budget ({most} slots): "
+              + ", ".join("bit for bit equal" if e else "DIFFER"
+                          for e in same) + f" -> {'ok' if good else 'FAIL'}"
+              + "; ms a launch in a CUDA graph at "
+              + ", ".join(f"{d} slots {t:.4f}" for d, t in times.items()))
+        ok &= good
+    return ok
 
 
 MPC_SOC = (7, 13) + (2,) * 7        # the MPC program's cones
@@ -1070,6 +1124,13 @@ def check_mono_parts(tag, statics, prog64, prog32):
     split, ms_off, ms_on = mono_parts.profile(statics, ins32)
     mono_parts.print_split(f"kernel time {tag}: mono_ipm float32 B={B} "
                            f"cold", split, ms_off, ms_on)
+    crs, kkt = split["cr_solve"], split["kkt_solves"]
+    print(f"  mono_ipm's KKT solves: kernel 4's solve (phase cr_solve) "
+          f"{crs[0]:.3f} ms a launch, {crs[1]:.4f} ms an iteration; the rest "
+          f"(phase kkt_solves) {kkt[0]:.3f} ms, {kkt[1]:.4f} ms an "
+          f"iteration; the solve's share {100 * crs[0] / (crs[0] + kkt[0]):.1f}"
+          f"% of the KKT solves, {100 * crs[0] / split['sum'][0]:.1f}% of the "
+          f"launch (the initialization's solves count as init)")
     cost = ms_on / ms_off - 1
     covered = split["sum"][1] / split["block"][1] - 1
     good = abs(cost) < 0.02 and abs(covered) <= 0.01
@@ -1220,7 +1281,7 @@ def main():
           f"subproblems of the main path, cold and warm")
     ok_all, max_err, warm64, warm32 = True, 0.0, None, None
     for case in ("cold", "warm"):
-        _, k64, p64, rk64, rp64 = solve_both(statics, prog64, warm64)
+        ins64, k64, p64, rk64, rp64 = solve_both(statics, prog64, warm64)
         d64 = rel_diffs(rk64, rp64)
         eps = st.eps_feas
         flags = int(((k64[4][:, 0, 0] < eps) != (p64[4][:, 0, 0] < eps))
@@ -1250,6 +1311,7 @@ def main():
                                U=prog64.extract(rk64.x, "U").contiguous())
             iters = k32[4][:, 0, 1].tolist()
             ms = cuda_ms(lambda: ipm_mono._mono_cuda(statics, *ins32), 5)
+            ms64 = cuda_ms(lambda: ipm_mono._mono_cuda(statics, *ins64), 5)
             plain_ms = cuda_ms(
                 lambda: ipm_mono._solve_block(statics, *ins32), 2)
     nbytes, flops = mono_work(prog32, st, iters, cold=True)
@@ -1260,7 +1322,8 @@ def main():
                                  bound_by=b_by)}
     print(f"kernel time {tag}: mono_ipm float32 {ms:.3f} ms per launch "
           f"(B={B} cold, IPM iterations per scenario {min(iters):.0f}-"
-          f"{max(iters):.0f}), plain {plain_ms:.1f} ms; bound "
+          f"{max(iters):.0f}; float64 {ms64:.3f} ms), plain "
+          f"{plain_ms:.1f} ms; bound "
           f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.2f} GFLOP, the sequential recursion's count); "
           f"the cyclic reduction the kernel runs does {cr_flops / 1e9:.2f} "

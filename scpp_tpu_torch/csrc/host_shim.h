@@ -9,7 +9,11 @@
 // for each block run: one barrier and one exchange array per group of 32
 // threads (the last group may have fewer), which `__syncwarp` and the
 // shuffles use. The asynchronous copies of <cuda_pipeline_primitives.h>
-// copy at once.
+// copy at once, and so do the bulk copies of cr_solve_body.cuh: its
+// mbarriers (init, expect-tx, arrive, wait by phase parity, inval) keep
+// their state in their own 8 bytes of shared memory, under one lock, and
+// a bulk copy completes its bytes on its mbarrier as it returns; the
+// proxy fences order nothing here.
 #pragma once
 #include <algorithm>
 #include <array>
@@ -18,9 +22,12 @@
 #include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <math.h>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #define __device__
@@ -28,6 +35,8 @@
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) double2 { double x, y; };
 extern thread_local Dim3 threadIdx;
 extern Dim3 blockDim;
 extern std::barrier<>* g_barrier;
@@ -105,6 +114,67 @@ inline void __pipeline_memcpy_async(void* dst, const void* src,
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(std::size_t) {}
+// an mbarrier: transaction bytes still owed, arrivals still owed, the
+// arrivals a phase takes (low 15 bits) and the current phase's parity
+// (top bit)
+struct HostMbar {
+  std::int32_t tx;
+  std::uint16_t pending;
+  std::uint16_t count_phase;
+};
+static_assert(sizeof(HostMbar) == 8, "an mbarrier is 8 bytes");
+inline std::mutex& host_mbar_lock() {
+  static std::mutex m;
+  return m;
+}
+inline HostMbar* host_mbar(unsigned long long* bar) {
+  return reinterpret_cast<HostMbar*>(bar);
+}
+// the phase completes when its arrivals and bytes are all in
+inline void host_mbar_settle(HostMbar* m) {
+  if (m->pending == 0 && m->tx == 0) {
+    m->count_phase ^= 0x8000;
+    m->pending = m->count_phase & 0x7fff;
+  }
+}
+inline void mbar_init(unsigned long long* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(host_mbar_lock());
+  *host_mbar(bar) = HostMbar{0, static_cast<std::uint16_t>(count),
+                             static_cast<std::uint16_t>(count & 0x7fff)};
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive_expect_tx(unsigned long long* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(host_mbar_lock());
+  HostMbar* m = host_mbar(bar);
+  m->tx += static_cast<std::int32_t>(bytes);
+  m->pending -= 1;
+  host_mbar_settle(m);
+}
+// true once the phase of this parity has completed
+inline bool mbar_try_wait(unsigned long long* bar, unsigned parity) {
+  bool done;
+  {
+    std::lock_guard<std::mutex> g(host_mbar_lock());
+    done = unsigned(host_mbar(bar)->count_phase >> 15) != (parity & 1u);
+  }
+  if (!done) std::this_thread::yield();
+  return done;
+}
+inline void mbar_inval(unsigned long long* bar) {
+  std::lock_guard<std::mutex> g(host_mbar_lock());
+  *bar = 0;
+}
+inline void bulk_copy_g2s(void* dst, const void* src, unsigned bytes,
+                          unsigned long long* bar) {
+  std::memcpy(dst, src, bytes);
+  std::lock_guard<std::mutex> g(host_mbar_lock());
+  HostMbar* m = host_mbar(bar);
+  m->tx -= static_cast<std::int32_t>(bytes);
+  host_mbar_settle(m);
+}
+inline void fence_proxy_async() {}
+// a block that traps ends the launch with an error: here, the process
+inline void __trap() { std::abort(); }
 // the device's cycle counter and globaltimer: nanoseconds of a steady clock
 inline long long clock64() {
   return std::chrono::duration_cast<std::chrono::nanoseconds>(

@@ -27,7 +27,11 @@
 // rows are zero at every level, so R sums over w terms, Q has w nonzero
 // columns and only the first w rows of a coupling are stored. The KKT
 // solves are kernel 4's cyclic-reduction solve (cr_solve_body.cuh) on the
-// same (K-1, 3, Wp, Wp) + root layout as cr_fused.cr_pack. The factor,
+// same (K-1, 3, Wp, Wp) + root layout as cr_fused.cr_pack, the factor
+// streamed by TMA bulk copies through a ring of slots in the shared
+// region (4 float slots, 1 double at the flagship shapes; a region grown
+// to 227 KB for 7 slots sped the solve and slowed the other phases by
+// more, as the L1 cache shrinks with it). The factor,
 // the level's blocks and the iterate vectors live in a global workspace
 // (1.91 MB a scenario in float: the card's 50 MB L2 holds 26
 // scenarios); shared memory holds the stage tiles, the factor tiles or
@@ -96,8 +100,12 @@ int launch(mono::Dims dims, int B, void* stream, void** in, void** out,
   dims.nfac = mono::factor_tiles(dims.w, dims.me, kThreads, sizeof(T));
   const size_t smem = sizeof(T) * mono::smem_elems(dims.K, dims.w, dims.me,
                                                    dims.mc, kThreads,
-                                                   dims.nfac);
+                                                   dims.nfac, sizeof(T));
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // the KKT solves' ring needs a slot in the region before the reductions
+  if (cr::ring_slots(dims.K, dims.Wp, smem - kThreads * sizeof(T),
+                     sizeof(T)) < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       mono_ipm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -14,8 +14,8 @@
 // The KKT factor is cyclic reduction: its block factors run one warp per
 // block, synchronised by __syncwarp() and shuffles alone (a warp of the
 // last, partial group of threads has fewer lanes). The block reductions
-// and kernel 4's solve take a thread count that is a multiple of 32 or a
-// power of two below it.
+// take a thread count that is a multiple of 32 or a power of two below
+// it; kernel 4's solve takes any.
 #pragma once
 
 #include <math.h>
@@ -42,10 +42,11 @@ constexpr long long kFactorBytes = 163840;
 // that phase. The initialization (everything before the first iteration)
 // counts as one phase. The two slots after the phases hold the block's
 // whole run in clock64() cycles and in globaltimer nanoseconds, which
-// convert cycles to time.
+// convert cycles to time. kCrSolve is kernel 4's solve inside the KKT
+// solves (cr::solve in raw_solve); kSolves has the rest of them.
 enum Phase {
   kInit, kResiduals, kScaling, kAssembly, kBlockFactor, kLevelProducts,
-  kSolves, kConeStep, kRest, kPhases
+  kSolves, kCrSolve, kConeStep, kRest, kPhases
 };
 constexpr int kProfSlots = kPhases + 2;
 
@@ -81,17 +82,22 @@ __device__ __forceinline__ T floored(T p) { return jmax(p, T(1e-30)); }
 __host__ __device__ inline int odd_stride(int n) { return n | 1; }
 
 // Element counts of the per-scenario global workspace and of the dynamic
-// shared memory, shared by the kernel and the host wrapper.
+// shared memory, shared by the kernel and the host wrapper. The
+// workspace starts with the factor and is a multiple of 4 elements long,
+// so that every scenario's factor lies at a 16-byte aligned address, as
+// kernel 4's bulk copies of it need.
 __host__ __device__ inline long long workspace_elems(int K, int w, int me,
                                                      int mc) {
   const long long Wp = w + me, WW = Wp * Wp;
   const long long nw = (long long)K * w, ne = (long long)K * me,
                   nc = (long long)K * mc;
-  return 2 * K * WW                 // the level's diagonal blocks, twice
-         + 2 * (K - 1) * w * Wp     // its couplings (first w rows), twice
-         + (K - 1) * 3 * WW + WW    // the factor, in cr_pack's layout
-         + 2 * K * Wp               // right-hand side and solution
-         + 20 * nc + 10 * nw + 10 * ne;
+  const long long n =
+      (K - 1) * 3 * WW + WW       // the factor, in cr_pack's layout
+      + 2 * K * WW                // the level's diagonal blocks, twice
+      + 2 * (K - 1) * w * Wp      // its couplings (first w rows), twice
+      + 2 * K * Wp                // right-hand side and solution
+      + 20 * nc + 10 * nw + 10 * ne;
+  return (n + 3) / 4 * 4;
 }
 
 // Row stride of a block factor's shared tile: at least n and 4 (mod 8),
@@ -115,14 +121,18 @@ __host__ __device__ inline int factor_tiles(int w, int me, int threads,
   return (int)(fit < 1 ? 1 : fit < warps ? fit : warps);
 }
 
+// the dynamic shared memory in elements of the `elem_bytes`-byte type: the
+// region (assembly, block factors or kernel 4's solve with at least one
+// ring slot), then a reduction buffer of `threads`
 __host__ __device__ inline long long smem_elems(int K, int w, int me, int mc,
-                                               int threads, int nfac) {
+                                               int threads, int nfac,
+                                               int elem_bytes) {
   const long long Wp = w + me;
   const long long assemble =
       6LL * w * odd_stride(mc) + 4LL * w * odd_stride(me) + 8LL * mc +
       (long long)w * w;
   const long long fac = nfac * factor_tile_elems(w + me);
-  const long long solve = cr::smem_elems(K, (int)Wp);
+  const long long solve = cr::smem_elems(K, (int)Wp, elem_bytes);
   long long region = assemble > fac ? assemble : fac;
   region = region > solve ? region : solve;
   return region + threads;
@@ -544,10 +554,10 @@ struct Solver {
     Est = Est_;
     const int nw = K * w, ne = K * me, nc = K * mc;
     T* p = work;
-    Dl = p; p += 2 * K * WW;
-    Ol = p; p += 2LL * (K - 1) * w * Wp;
     Fb = p; p += (K - 1) * 3 * WW;
     Froot = p; p += WW;
+    Dl = p; p += 2 * K * WW;
+    Ol = p; p += 2LL * (K - 1) * w * Wp;
     bv = p; p += (long long)K * Wp;
     xv = p; p += (long long)K * Wp;
     T** cvecs[] = {&s, &z, &bs, &bz, &rz, &rd, &ru, &rdet, &lam, &idd, &idu,
@@ -557,7 +567,7 @@ struct Solver {
     for (T** v : wvecs) { *v = p; p += nw; }
     T** evecs[] = {&y, &by, &ry, &dy, &e1, &e2, &sy, &ax, &ff2, &cy};
     for (T** v : evecs) { *v = p; p += ne; }
-    red_off = smem_elems(K, w, me, mc, nt, nfac) - nt;
+    red_off = smem_elems(K, w, me, mc, nt, nfac, sizeof(T)) - nt;
   }
 
   __device__ __forceinline__ void sync() { __syncthreads(); }
@@ -1057,15 +1067,19 @@ struct Solver {
   }
 
   // solve M [ox; oy] = [rx_; ry_] with the stored factor: kernel 4's
-  // cyclic-reduction solve (cr_solve_body.cuh) on the same layout
+  // cyclic-reduction solve (cr_solve_body.cuh) on the same layout, its
+  // ring of factor slots in the shared region (red_off elements)
   __device__ void raw_solve(const T* rxv, const T* ryv, T* ox, T* oy) {
     for (int i = tid; i < K * Wp; i += nt) {
       const int k = i / Wp, j = i % Wp;
       bv[i] = j < w ? rxv[k * w + j] : ryv[k * me + j - w];
     }
     sync();
-    cr::solve<T>(K, Wp, w, Fb, Froot, bv, xv, region());
+    tick(kSolves);
+    cr::solve<T>(K, Wp, w, Fb, Froot, bv, xv, region(),
+                 red_off * (long long)sizeof(T), true);
     sync();
+    tick(kCrSolve);
     for (int i = tid; i < K * Wp; i += nt) {
       const int k = i / Wp, j = i % Wp;
       if (j < w) ox[k * w + j] = xv[i];

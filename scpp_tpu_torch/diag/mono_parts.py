@@ -11,7 +11,9 @@ and SOCs (5, 3, 3, 4, 4, 3), their 12 kernel inputs drawn by
 time, the first call (host clock, synchronised) and the warm time (best
 of 5 by CUDA events). ``phases`` runs the whole solve with the kernel's
 clock counters on (``ipm_mono.PHASES``) and prints ms per phase, per
-launch and per iteration, averaged over the blocks (:func:`profile`).
+launch and per iteration, averaged over the blocks (:func:`profile`);
+``cr_solve`` is kernel 4's solve (``cr::solve``) inside the KKT solves,
+``kkt_solves`` the rest of them.
 """
 
 from __future__ import annotations

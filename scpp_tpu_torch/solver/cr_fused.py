@@ -5,9 +5,11 @@ staged IPM (counterpart of ``scpp_tpu/solver/cr_pallas.py``).
 factor in one contiguous buffer per batch, (L^-1, R, Q) of every odd
 block in level order plus the root's L^-1. :func:`cr_solve_single` then
 solves M x = b: on a CUDA tensor it launches the hand-written kernel
-``csrc/cr_solve.cu`` (one thread block per scenario) or raises; on a CPU
-tensor it runs ``staged_kkt.cr_solve``, the kernel's plain version, on
-views of the same buffer.
+``csrc/cr_solve.cu`` (one thread block per scenario, the factor streamed
+through a ring of shared-memory slots, as many as ``smem_budget`` bytes
+hold: :func:`ring_slots`) or raises; on a CPU tensor it runs
+``staged_kkt.cr_solve``, the kernel's plain version, on views of the
+same buffer.
 
 The reference chooses between this kernel and XLA ops with
 ``IPMSettings.kkt_fused`` to save TPU dispatch overhead; on the card
@@ -26,7 +28,11 @@ from scpp_tpu_torch import kernels
 from scpp_tpu_torch.solver.staged_kkt import cr_solve, level_sizes
 
 __all__ = ["PackedFactor", "cr_pack", "cr_unpack", "cr_solve_single",
-           "cr_work"]
+           "cr_work", "smem_bytes", "ring_slots", "SMEM_BUDGET"]
+
+# the shared memory a Hopper block may use (227 KB): the kernel's budget
+# unless the caller gives a smaller one
+SMEM_BUDGET = 232448
 
 
 class PackedFactor(NamedTuple):
@@ -61,13 +67,20 @@ def _load_lib():
     lib = kernels.load("cr_solve")
     if lib.cr_solve_launch.argtypes is None:
         c_int, ptr = ctypes.c_int, ctypes.c_void_p
-        lib.cr_solve_launch.argtypes = [c_int, ptr] + [c_int] * 4 + [ptr] * 4
+        lib.cr_solve_launch.argtypes = ([c_int, ptr] + [c_int] * 4
+                                        + [ctypes.c_longlong] + [ptr] * 4)
         lib.cr_solve_launch.restype = c_int
+        lib.cr_solve_smem_bytes.argtypes = [c_int] * 4
+        lib.cr_solve_smem_bytes.restype = ctypes.c_longlong
+        lib.cr_solve_ring_slots.argtypes = ([c_int] * 2
+                                            + [ctypes.c_longlong, c_int])
+        lib.cr_solve_ring_slots.restype = c_int
     return lib
 
 
-def _cr_cuda(packed: PackedFactor, b):
-    """Launch ``cr_solve_kernel`` on the current stream."""
+def _cr_cuda(packed: PackedFactor, b, smem_budget: int = SMEM_BUDGET):
+    """Launch ``cr_solve_kernel`` on the current stream with at most
+    ``smem_budget`` bytes of shared memory a block."""
     blocks, root, p = packed
     dtype, dev = b.dtype, b.device
     if dtype not in (torch.float32, torch.float64):
@@ -91,7 +104,8 @@ def _cr_cuda(packed: PackedFactor, b):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cr_solve_launch(dtype.itemsize, stream, Bn, K, Wp, p,
-                                  blocks.data_ptr(), root.data_ptr(),
+                                  smem_budget, blocks.data_ptr(),
+                                  root.data_ptr(),
                                   b.data_ptr(), x.data_ptr())
     if err != 0:
         raise RuntimeError(f"cr_solve kernel launch failed: CUDA error {err}")
@@ -99,12 +113,27 @@ def _cr_cuda(packed: PackedFactor, b):
     return x
 
 
-def cr_solve_single(packed: PackedFactor, b):
+def cr_solve_single(packed: PackedFactor, b, smem_budget: int = SMEM_BUDGET):
     """x = M^-1 b for b (B, K, Wp): the CUDA kernel for tensors on the
-    card, ``staged_kkt.cr_solve`` for CPU tensors."""
+    card (its ring sized by ``smem_budget`` bytes, which must hold one
+    slot; the result does not depend on it), ``staged_kkt.cr_solve`` for
+    CPU tensors."""
     if b.is_cuda:
-        return _cr_cuda(packed, b.contiguous())
+        return _cr_cuda(packed, b.contiguous(), smem_budget)
     return cr_solve(cr_unpack(packed), b)
+
+
+def smem_bytes(K: int, Wp: int, slots: int, elem_bytes: int) -> int:
+    """Shared memory of one block of the kernel with a ring of ``slots``
+    slots, in bytes (``cr::smem_bytes``, read from the built kernel)."""
+    return int(_load_lib().cr_solve_smem_bytes(K, Wp, slots, elem_bytes))
+
+
+def ring_slots(K: int, Wp: int, budget: int, elem_bytes: int) -> int:
+    """The kernel's ring depth in ``budget`` bytes (``cr::ring_slots``,
+    read from the built kernel); 0 if not one slot fits, which the kernel
+    refuses."""
+    return int(_load_lib().cr_solve_ring_slots(K, Wp, budget, elem_bytes))
 
 
 def cr_work(B: int, K: int, Wp: int, elem_bytes: int):

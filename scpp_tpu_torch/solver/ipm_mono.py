@@ -296,7 +296,7 @@ def _solve_block(statics, AT, GT, b_eq, h, c, d_eq, d_c, E_st, scal,
 # order; a (B, PROF_SLOTS) int64 buffer holds each block's clock64()
 # cycles per phase, then its whole run in cycles and in globaltimer ns.
 PHASES = ("init", "residuals", "nt_scaling", "assembly", "block_factors",
-          "level_products", "kkt_solves", "cone_step", "rest")
+          "level_products", "kkt_solves", "cr_solve", "cone_step", "rest")
 PROF_SLOTS = len(PHASES) + 2
 
 _IN_NAMES = ("AT", "GT", "b_eq", "h", "c", "d_eq", "d_c", "E_st", "scal",

@@ -37,10 +37,13 @@ thread_local Dim3 threadIdx;
 Dim3 blockDim;
 std::barrier<>* g_barrier;
 
+// the blocks one after another, each with `budget` bytes of shared memory
+// (filled with NaN bytes first)
 template <typename T>
-int run(int nthreads, int B, int K, int Wp, int p, const T* blocks,
-        const T* root, const T* b, T* x) {
-  std::vector<T> smem(cr::smem_elems(K, Wp), NAN);
+int run(int nthreads, int B, int K, int Wp, int p, long long budget,
+        const T* blocks, const T* root, const T* b, T* x) {
+  if (cr::ring_slots(K, Wp, budget, sizeof(T)) < 1) return -1;
+  std::vector<unsigned long long> smem((budget + 7) / 8, ~0ULL);
   const long long WW = (long long)Wp * Wp;
   blockDim.x = nthreads;
   for (int s = 0; s < B; ++s) {
@@ -52,7 +55,7 @@ int run(int nthreads, int B, int K, int Wp, int p, const T* blocks,
         threadIdx.x = t;
         cr::solve<T>(K, Wp, p, blocks + s * (K - 1) * 3 * WW, root + s * WW,
                      b + (long long)s * K * Wp, x + (long long)s * K * Wp,
-                     smem.data());
+                     smem.data(), budget, false);
       });
     }
     for (auto& th : threads) th.join();
@@ -61,14 +64,20 @@ int run(int nthreads, int B, int K, int Wp, int p, const T* blocks,
 }
 
 extern "C" int host_cr(int nthreads, int B, int K, int Wp, int p,
-                       const double* blocks, const double* root,
-                       const double* b, double* x) {
-  return run<double>(nthreads, B, K, Wp, p, blocks, root, b, x);
+                       long long budget, const double* blocks,
+                       const double* root, const double* b, double* x) {
+  return run<double>(nthreads, B, K, Wp, p, budget, blocks, root, b, x);
 }
 extern "C" int host_cr_f32(int nthreads, int B, int K, int Wp, int p,
-                           const float* blocks, const float* root,
-                           const float* b, float* x) {
-  return run<float>(nthreads, B, K, Wp, p, blocks, root, b, x);
+                           long long budget, const float* blocks,
+                           const float* root, const float* b, float* x) {
+  return run<float>(nthreads, B, K, Wp, p, budget, blocks, root, b, x);
+}
+extern "C" long long host_smem_bytes(int K, int Wp, int slots, int eb) {
+  return cr::smem_bytes(K, Wp, slots, eb);
+}
+extern "C" int host_ring_slots(int K, int Wp, long long budget, int eb) {
+  return cr::ring_slots(K, Wp, budget, eb);
 }
 """
 
@@ -94,7 +103,12 @@ def host_lib(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     for fn, c_t in ((so.host_cr, ctypes.c_double),
                     (so.host_cr_f32, ctypes.c_float)):
-        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(c_t)] * 4
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_longlong]
+                       + [ctypes.POINTER(c_t)] * 4)
+    so.host_smem_bytes.argtypes = [ctypes.c_int] * 4
+    so.host_smem_bytes.restype = ctypes.c_longlong
+    so.host_ring_slots.argtypes = [ctypes.c_int] * 2 + [ctypes.c_longlong,
+                                                        ctypes.c_int]
     return so
 
 
@@ -131,15 +145,21 @@ def packed_case(B, K, p, q, seed, dtype=torch.float64):
     return cr_fused.cr_pack(fact), b, (D, O)
 
 
-def host_solve(lib, packed, b, nthreads):
+def host_solve(lib, packed, b, nthreads, slots=None):
+    """The host-built body on ``packed`` and b, with the kernel's full
+    shared-memory budget or with one of ``slots`` ring slots."""
     blocks, root, p = packed
     Bn, K, Wp = b.shape
     f32 = b.dtype == torch.float32
+    budget = (cr_fused.SMEM_BUDGET if slots is None else
+              lib.host_smem_bytes(K, Wp, slots, b.element_size()))
     arrs = [np.ascontiguousarray(t.numpy()) for t in (blocks, root, b)]
-    x = np.zeros_like(arrs[2])
+    x = np.full_like(arrs[2], np.nan)
     P = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
-    (lib.host_cr_f32 if f32 else lib.host_cr)(
-        nthreads, Bn, K, Wp, p, *(a.ctypes.data_as(P) for a in arrs + [x]))
+    err = (lib.host_cr_f32 if f32 else lib.host_cr)(
+        nthreads, Bn, K, Wp, p, budget,
+        *(a.ctypes.data_as(P) for a in arrs + [x]))
+    assert err == 0
     return torch.from_numpy(x)
 
 
@@ -177,6 +197,65 @@ def test_kernel_body_float32_near_float64(host_lib, K):
           f"kernel body {rel(got, ref):.2e}, plain version "
           f"{rel(plain, ref):.2e}")
     assert rel(got, ref) <= F32_CEILING
+
+
+# (K, p, q, threads): the ring cycles at K=30; bulk copies and 16-byte
+# row reads where a row is a 16-byte multiple (Wp=8 and 40 in both types,
+# Wp=6 in float64), element copies and 4- or 8-byte reads elsewhere
+# (Wp=5); at K=40 the full ring stops at its 31 slots
+RING_CASES = [(30, 4, 2, 32), (13, 5, 3, 8), (8, 3, 2, 1), (9, 26, 14, 64),
+              (40, 4, 2, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K,p,q,nthreads", RING_CASES,
+                         ids=[f"K{c[0]}-p{c[1]}-q{c[2]}-{c[3]}threads"
+                              for c in RING_CASES])
+def test_ring_depth_leaves_the_result_unchanged(host_lib, K, p, q, nthreads,
+                                                dtype):
+    """The kernel's budget sizes its ring of factor slots; at 1, 2 and 3
+    slots (one block a chunk, the ring reloaded for the up-sweep) the
+    body gives the same x bit for bit as at the full budget (every block
+    resident), and float64 lands within 1e-10 of the plain version."""
+    packed64, b, (D, O) = packed_case(2, K, p, q, seed=K + 5)
+    if dtype == torch.float64:
+        packed = packed64
+    else:
+        packed = cr_fused.cr_pack(cr_factor(D.float(), O.float(), p))
+    b = b.to(dtype)
+    full = host_solve(host_lib, packed, b, nthreads)
+    assert torch.isfinite(full).all()
+    for slots in (1, 2, 3):
+        assert torch.equal(host_solve(host_lib, packed, b, nthreads, slots),
+                           full), slots
+    if dtype == torch.float64:
+        assert rel(full, cr_solve(cr_fused.cr_unpack(packed), b)) <= 1e-10
+
+
+def test_shared_memory_layout(host_lib):
+    """The body's layout (``cr::smem_bytes``, ``cr::ring_slots``, which
+    the wrapper reads from the built kernel): a slot more costs one slot's
+    bytes, the ring takes as many slots as the budget holds, at most
+    K - 1 and 31, and a budget below one slot is refused (the launcher
+    returns cudaErrorInvalidValue, the host harness -1)."""
+    for K, Wp, eb in ((30, 48, 4), (30, 48, 8), (5, 10, 4), (1, 7, 8),
+                      (2, 5, 4), (40, 3, 8), (30, 62, 8)):
+        one = host_lib.host_smem_bytes(K, Wp, 1, eb)
+        slot = host_lib.host_smem_bytes(K, Wp, 2, eb) - one
+        assert slot >= 3 * Wp * Wp * eb
+        for budget, slots in ((one - 1, 0), (one, 1), (one + slot - 1, 1),
+                              (1 << 40, min(max(K - 1, 1), 31))):
+            assert host_lib.host_ring_slots(K, Wp, budget, eb) == slots
+    # the flagship: 7 float slots and 3 double ones in 227 KB
+    assert host_lib.host_ring_slots(30, 48, cr_fused.SMEM_BUDGET, 4) == 7
+    assert host_lib.host_ring_slots(30, 48, cr_fused.SMEM_BUDGET, 8) == 3
+    packed, b, _ = packed_case(1, 4, 2, 1, seed=0)
+    budget = host_lib.host_smem_bytes(4, 3, 1, 8) - 1
+    P = ctypes.POINTER(ctypes.c_double)
+    arrs = [np.ascontiguousarray(t.numpy()) for t in (*packed[:2], b)]
+    x = np.zeros_like(arrs[2])
+    assert host_lib.host_cr(1, 1, 4, 3, 2, budget, *(
+        a.ctypes.data_as(P) for a in arrs + [x])) == -1
 
 
 def test_cpu_tensors_take_the_plain_version():

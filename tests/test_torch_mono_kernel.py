@@ -60,8 +60,13 @@ int run_blocks(int nthreads, int B, int K, int w, int me, int l, int S,
   const long long nw = (long long)K * w, ne = (long long)K * me,
                   nc = (long long)K * d.mc;
   std::vector<T> work(mono::workspace_elems(K, w, me, d.mc), NAN);
-  std::vector<T> smem(mono::smem_elems(K, w, me, d.mc, nthreads, d.nfac),
-                      NAN);
+  const long long smem_n =
+      mono::smem_elems(K, w, me, d.mc, nthreads, d.nfac, sizeof(T));
+  // the launcher's check: the solve's ring needs a slot in the region
+  if (cr::ring_slots(K, w + me, (smem_n - nthreads) * sizeof(T),
+                     sizeof(T)) < 1)
+    return -1;
+  std::vector<T> smem(smem_n, NAN);
   blockDim.x = nthreads;
   mono::mono_smem = reinterpret_cast<unsigned char*>(smem.data());
   for (int b = 0; b < B; ++b) {
@@ -107,6 +112,16 @@ SpinBarrier** g_warp_barriers;
 unsigned long long (*g_warp_xch)[2][32];
 unsigned char* mono::mono_smem;
 HOST_RUN(host_run, double)
+
+// the ring slots that kernel 4's solve gets in the shared region of a
+// kernel-1 block of `nthreads` threads in an `eb`-byte type
+extern "C" int host_solve_slots(int K, int w, int me, int mc, int nthreads,
+                                int eb) {
+  const int nfac = mono::factor_tiles(w, me, nthreads, eb);
+  const long long region =
+      mono::smem_elems(K, w, me, mc, nthreads, nfac, eb) - nthreads;
+  return cr::ring_slots(K, w + me, region * eb, eb);
+}
 
 // the warp's signed block factor alone, with `nthreads` <= 32 lanes:
 // M (n, n) -> L, L^{-1}; `regs` runs the register version (n == 48 and
@@ -166,6 +181,7 @@ def host_lib(tmp_path_factory):
                        + [ctypes.c_void_p])
     P = ctypes.POINTER(ctypes.c_double)
     so.host_chol.argtypes = [ctypes.c_int] * 4 + [P] * 3
+    so.host_solve_slots.argtypes = [ctypes.c_int] * 6
     return so
 
 
@@ -193,7 +209,7 @@ def host_solve(lib, statics, ins, nthreads, part="full", prof=None):
     outs = [np.zeros((B,) + s, ins[0].dtype) for s in
             ((K, w), (K, me), (K, mc), (K, mc), (1, 4))]
     P = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
-    (lib.host_run_f32 if f32 else lib.host_run)(nthreads, B, K, w, me, l, len(socs),
+    err = (lib.host_run_f32 if f32 else lib.host_run)(nthreads, B, K, w, me, l, len(socs),
                  (ctypes.c_int * len(socs))(*socs), st.iters,
                  st.refine_steps, int(st.mono_track_best),
                  ipm_mono.part_code(part), st.eps_reg,
@@ -201,6 +217,7 @@ def host_solve(lib, statics, ins, nthreads, part="full", prof=None):
                  (P * 12)(*[a.ctypes.data_as(P) for a in ins]),
                  (P * 5)(*[a.ctypes.data_as(P) for a in outs]),
                  None if prof is None else prof.ctypes.data)
+    assert err == 0
     return [torch.from_numpy(o) for o in outs]
 
 
@@ -326,7 +343,8 @@ def test_kernel_body_phase_counters(host_lib):
     """With a counter buffer the body records every phase (on the host,
     clock64() reads nanoseconds) and computes the same solution bit for
     bit: the phases sum to the block's whole run, and the initialization
-    and the iteration's KKT phases are not empty."""
+    and the iteration's KKT phases, kernel 4's solve among them, are not
+    empty."""
     statics, ins = k_inputs(5)
     prof = np.zeros((2, ipm_mono.PROF_SLOTS), np.int64)
     got = host_solve(host_lib, statics, ins, 64, "iter1", prof)
@@ -337,13 +355,67 @@ def test_kernel_body_phase_counters(host_lib):
     assert (phases >= 0).all()
     names = ipm_mono.PHASES
     for name in ("init", "residuals", "assembly", "block_factors",
-                 "level_products", "kkt_solves", "cone_step"):
+                 "level_products", "kkt_solves", "cr_solve", "cone_step"):
         assert (phases[:, names.index(name)] > 0).all(), name
     total = prof[:, n]
     assert (phases.sum(1) <= total).all()
     assert (phases.sum(1) >= 0.95 * total).all()
     # the host's clock64() and globaltimer are one clock, read in turn
     np.testing.assert_allclose(prof[:, n + 1], total, rtol=1e-2)
+
+
+def random_inputs(B, K, w, me, l, socs, seed):
+    """The kernel's 12 inputs drawn uniformly from [0, 1) in float64, as
+    diag/mono_parts.py draws them, for programs of any shape."""
+    mc = l + sum(socs)
+    rng = np.random.default_rng(seed)
+    shapes = [(B, K, 2 * w, me), (B, K, 2 * w, mc), (B, K, me), (B, K, mc),
+              (B, K, w), (B, K, me), (B, K, mc), (B, K, w), (B, 1, 4),
+              (B, K, w), (B, K, me), (B, K, mc)]
+    return [torch.tensor(rng.random(s)) for s in shapes]
+
+
+@pytest.mark.parametrize("eb", [8, 4], ids=["float64", "float32"])
+def test_solve_region_holds_a_ring_slot(host_lib, eb):
+    """Kernel 1's shared region holds at least one ring slot of kernel 4's
+    solve in the kernel's own element type, at every thread count, and
+    where the solve sizes the region: at K=30, w=46, me=16, mc=52 a region
+    sized by the float count of one slot is 32 bytes short of a double
+    slot."""
+    for K in (2, 3, 4, 5, 9, 16, 30, 33):
+        for w in (1, 2, 3, 5, 8, 13, 32, 46, 64):
+            for me in (1, 2, 3, 7, 16, 24):
+                for mc in (1, me, 52, 2 * w + me):
+                    for nthreads in (1, 8, 64, 512):
+                        assert host_lib.host_solve_slots(
+                            K, w, me, mc, nthreads, eb) >= 1, \
+                            (K, w, me, mc, nthreads)
+
+
+# (K, w, me, l, socs, threads): small programs whose shared region the
+# solve sizes, where one double slot outgrows the float count of one
+SOLVE_SIZED = [(5, 3, 2, 2, (3,), 8), (4, 4, 2, 2, (3,), 64),
+               (7, 3, 1, 2, (3,), 8)]
+
+
+@pytest.mark.parametrize("K,w,me,l,socs,nthreads", SOLVE_SIZED,
+                         ids=[f"K{c[0]}-w{c[1]}-me{c[2]}-{c[5]}threads"
+                              for c in SOLVE_SIZED])
+def test_kernel_body_where_the_solve_sizes_the_region(host_lib, K, w, me, l,
+                                                      socs, nthreads):
+    """Kernel 1's body in float64 on random programs of such a shape
+    against the plain version, 1e-10 relative after one iteration and
+    1e-8 after the whole solve: every KKT solve runs."""
+    st = FLAGSHIP.replace(iters=4)
+    statics = (K, w, me, l, socs, st)
+    ins = random_inputs(2, K, w, me, l, socs, seed=K + w)
+    for part, tol in (("iter1", 1e-10), ("full", 1e-8)):
+        ref = ipm_mono._solve_block(statics, *ins, part=part)
+        got = host_solve(host_lib, statics, ins, nthreads, part)
+        for a, b in zip(got[:4], ref[:4]):
+            assert torch.isfinite(a).all()
+            assert float((a - b).abs().max()) <= tol * (1 + float(
+                b.abs().max())), part
 
 
 # The main path's dtype: the kernel in float32 must land within this of

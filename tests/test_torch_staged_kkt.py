@@ -7,19 +7,23 @@ block-tridiagonal systems in float64, single- and multi-right-hand-side,
 to 1e-10 relative; and the reference's Cholesky semantics on a block
 that is not quasidefinite: NaN in that block only. The CUDA kernel that
 replaces ``cr_solve`` on the card is held against the port's
-``cr_solve`` in test_torch_cr_kernel.py.
+``cr_solve`` in test_torch_cr_kernel.py, and here, with that plain
+version, against the TPU kernel it replaces (``cr_pallas``, in
+interpret mode).
 """
 
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from scpp_tpu.solver import cr_pallas as j_crp
 from scpp_tpu.solver import staged_kkt as j_kkt
-from scpp_tpu_torch.solver import staged_kkt
-from test_torch_cr_kernel import qd_blocks
+from scpp_tpu_torch.solver import cr_fused, staged_kkt
+from test_torch_cr_kernel import host_lib, host_solve, qd_blocks  # noqa: F401
 
 SHAPES = [(1, 3, 2), (4, 3, 2), (7, 5, 3), (8, 6, 3)]
 
@@ -93,3 +97,36 @@ def test_indefinite_block_is_nan_as_in_jax(part):
         assert np.isnan(L[2, p:, p:][np.tril_indices(2)]).all()
     assert np.isfinite(L[~bad]).all()
     assert rel(L[~bad], L_j[~bad]) <= 1e-10
+
+
+PALLAS_SHAPES = [(4, 3, 2), (8, 4, 2)]
+
+
+@pytest.mark.parametrize("K,p,q", PALLAS_SHAPES, ids=[
+    f"K{k}-p{p}-q{q}" for k, p, q in PALLAS_SHAPES])
+def test_port_solve_matches_the_pallas_kernel(host_lib, K, p, q):
+    """The port's single-right-hand-side solve against the TPU kernel it
+    replaces, ``cr_pallas.cr_solve_fused`` in interpret mode, on the same
+    packed factor of two scenarios: the plain version (what
+    ``cr_fused.cr_solve_single`` runs for CPU tensors) and the kernel
+    body built for the host (the full ring, and one slot), float64, to
+    1e-10 relative. The reference packs each scenario's factor into its
+    own lane-packed planes from the port's blocks."""
+    rng = np.random.default_rng(100 + K)
+    D, O = qd_blocks(rng, 2, K, p, q)
+    b = rng.standard_normal((2, K, p + q))
+    packed = cr_fused.cr_pack(staged_kkt.cr_factor(D, O, p))
+    bt = torch.tensor(b)
+    plain = cr_fused.cr_solve_single(packed, bt)
+    body = host_solve(host_lib, packed, bt, 32)
+    body1 = host_solve(host_lib, packed, bt, 32, slots=1)
+    levels, root, _ = cr_fused.cr_unpack(packed)
+    for s in range(2):
+        fact_j = (tuple(tuple(jnp.asarray(a[s].numpy()) for a in lv)
+                        for lv in levels), jnp.asarray(root[s].numpy()), p)
+        packed_j, p_j = j_crp.cr_pack(fact_j, K)
+        with jax.default_matmul_precision("highest"):
+            x_j = np.asarray(j_crp.cr_solve_fused(
+                packed_j, jnp.asarray(b[s]), p_j, interpret=True))
+        for x in (plain, body, body1):
+            assert rel(x[s], x_j) <= 1e-10
