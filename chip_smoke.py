@@ -285,6 +285,7 @@ def check_fused_kernels(tag, cases):
     ceiling of the float64 plain result (DISC_F32_CEILING,
     RESIM_F32_CEILING), about four times the largest reading. Returns
     (ok, measures)."""
+    from scpp_tpu_torch.diag import calib
     from scpp_tpu_torch.models import RocketQuat
     from scpp_tpu_torch.ops import disc_mono
     cfg = flagship_config()
@@ -325,17 +326,49 @@ def check_fused_kernels(tag, cases):
         ins32 = [a.float() for a in cases["step 0"]]
         args = (RocketQuat, *ins32, steps, cfg.integrator, True)
         ms = cuda_ms(lambda: kern(*args), 20)
+        graph_ms = calib.graph_ms(lambda: kern(*args), 20)
         plain_ms = cuda_ms(lambda: plain(*args), 2)
         work = disc_work if name == "disc_mono" else resim_work
         nbytes, flops = work(ins32[0], ins32[1], steps, cfg.integrator)
         b_ms, b_by = bound(nbytes, flops)
         measures[name] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by)
+                              bound_ms=b_ms, bound_by=b_by,
+                              graph_ms=graph_ms)
         print(f"kernel time {tag}: {name} float32 {ms:.4f} ms per launch "
-              f"(B={B} K={K}, {steps} {cfg.integrator} steps), plain {plain_ms:.1f} "
-              f"ms; bound {b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.3f} MB, "
-              f"{flops / 1e9:.4f} GFLOP)")
+              f"from the host, {graph_ms:.4f} ms in a CUDA graph (B={B} "
+              f"K={K}, {steps} {cfg.integrator} steps), plain "
+              f"{plain_ms:.1f} ms; bound {b_ms:.5f} ms by {b_by} "
+              f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP): "
+              f"{100 * b_ms / ms:.1f}% of it from the host, "
+              f"{100 * b_ms / graph_ms:.1f}% in the graph")
+        if name == "disc_mono":
+            print_disc_parts(tag, args, ms)
     return ok, measures
+
+
+def print_disc_parts(tag, args, ms_off):
+    """disc_mono's part split on one flagship float32 launch (the clock64
+    counters of csrc/disc_mono_body.cuh: x chain, Jacobians with r, Y
+    recursion, as column 0 of Y sees them), and the launch with the
+    counters on."""
+    from scpp_tpu_torch.diag.disc_versus import phase_split
+    from scpp_tpu_torch.ops import disc_mono
+    X = args[1]
+    prof = torch.zeros((X.shape[0] * (X.shape[1] - 1), disc_mono.PROF_SLOTS),
+                       dtype=torch.int64, device=X.device)
+    disc_mono._disc_cuda(*args, prof=prof)
+    torch.cuda.synchronize()
+    split = phase_split(prof)
+    ms_on = cuda_ms(lambda: disc_mono._disc_cuda(*args, prof=prof), 20)
+    print(f"disc_mono {tag}: parts, us a block (mean over "
+          f"{prof.shape[0]} blocks): " + ", ".join(
+              f"{p} {split[p]:.2f}" for p in disc_mono.PHASES)
+          + f"; block run by globaltimer mean {split['block'][0]:.2f}, max "
+          f"{split['block'][1]:.2f}; clock64 {split['ghz']:.3f} GHz; "
+          f"{disc_mono.threads()} threads and "
+          f"{disc_mono.smem_bytes(X.dtype, 'dopri5', True)} bytes of shared "
+          f"memory a block; launch {ms_off:.4f} ms counters off, "
+          f"{ms_on:.4f} ms on")
 
 
 def dense_kkt(D, O):

@@ -9,25 +9,37 @@
 // `_disc_plain` and `_resim_plain` in scpp_tpu_torch/ops/disc_mono.py; the
 // arithmetic is in disc_mono_body.cuh.
 //
-// Layout. Discretize: one 32-thread block per interval (1856 blocks at
-// B=64, K=30, all resident at once): thread c owns column c of the
-// augmented variational state and its stage slopes in registers, thread
-// ncols owns the state, threads j < n + m evaluate the flow map on dual
-// numbers seeded on input direction j (one column of [A | B] each, the
-// arithmetic of the reference's jvp), and [A | B], f and r sit in shared
-// memory. Resim: one block per scenario, one thread per interval, then a
-// sum over the intervals in a fixed order (no atomics), so the result does
-// not change from launch to launch. The Pallas layout (slot scratch,
-// 8-row tiles, the scenario sub-batches of its grid, the iota tangent
-// bases) answered Mosaic's limits and is not carried over.
+// Layout. Discretize: one 64-thread block (two warps) per interval, 1856
+// blocks at B=64, K=30 (96 registers a thread in float, 10 blocks an SM;
+// ~19 KB of shared memory a block). Per substep: the last warp integrates
+// the state through the stages (value flow maps, lane 0; stage inputs, a
+// row a lane); then both warps evaluate the stage Jacobians, two input
+// directions a thread on dual numbers with two tangents (the value part is
+// shared); then the threads form r = f - A x - B u; then the first warp
+// takes the variational recursion, a column of Y a lane, n-term sums over
+// rows of [A | B] read four at a time, while the last warp already
+// integrates the next substep's state. See disc_mono_body.cuh. Resim: one
+// block per scenario, one thread per interval, then a sum over the
+// intervals in a fixed order (no atomics), so the result does not change
+// from launch to launch. The Pallas layout (slot scratch, 8-row tiles, the
+// scenario sub-batches of its grid, the iota tangent bases) answered
+// Mosaic's limits and is not carried over.
 //
 // What bounds them. Discretize at the main path's shapes (FOH, dopri5,
-// 6 steps, 6 evaluated stages a step): ~1.1 GFLOP for ~2.4 MB of
-// outputs, so operations bound it (chip_smoke.py:disc_work counts both);
-// this first version is far from that bound: per stage a block runs three
-// barriers and each column thread a 14 x 14 matrix-vector product from
-// shared memory. Resim: ~20 MFLOP for ~0.14 MB, well under a microsecond of
-// either, so the launch itself dominates.
+// 6 steps, 6 evaluated stages a step): ~1.07 GFLOP for ~2.5 MB, so
+// operations bound it at 0.0159 ms (chip_smoke.py:disc_work). The kernel
+// runs at about 0.124 ms in a CUDA graph on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md, section 6, row 2; the one-warp layout before it, 0.32
+// ms). What holds it there, measured with diag/disc_versus.py and
+// diag/pipe_probe.py on that card: the chains of dependent operations in
+// each warp (a dual-number flow map above all), too few warps an SM to
+// hide them (registers), and the instruction cache: the
+// one-warp layout's 110 KB of unrolled code ran out of a cache that four
+// warps each in its own 16 KB already slow eightfold; this layout's loops
+// are rolled. The device's division runs a slow path for a zero
+// numerator, which the tangents meet at most directions; disc::tdiv
+// avoids it. Resim: ~20 MFLOP for ~0.14 MB, well under a microsecond of
+// either, so its launch and its one-thread-an-interval chain dominate.
 //
 // Interface: plain C functions, loaded with ctypes; each launches on the
 // given stream, allocates nothing, and returns the cudaError_t of the
@@ -40,13 +52,15 @@
 namespace {
 
 template <class Model, class Tab, bool FOH, typename T>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(disc::kDiscThreads)
 disc_mono_kernel(int K, int KU, int substeps, const T* X, const T* U,
-                 const T* ts, const T* par, T* A, T* Bm, T* C, T* z) {
-  __shared__ T smem[disc::disc_smem_elems<Model>()];
-  disc::disc_block<Model, Tab, FOH, T>(blockIdx.x, threadIdx.x, K, KU,
-                                       substeps, X, U, ts, par, A, Bm, C, z,
-                                       smem);
+                 const T* ts, const T* par, T* A, T* Bm, T* C, T* z,
+                 long long* prof) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  disc::disc_block<Model, Tab, FOH, T>(
+      blockIdx.x, threadIdx.x, disc::kDiscThreads, K, KU, substeps, X, U,
+      ts, par, A, Bm, C, z, reinterpret_cast<T*>(smem_raw),
+      prof ? prof + (long long)blockIdx.x * disc::kDiscProfSlots : nullptr);
 }
 
 template <class Model, class Tab, bool FOH, typename T>
@@ -59,6 +73,9 @@ resim_mono_kernel(int K, int KU, int substeps, const T* X, const T* U,
                                         reinterpret_cast<T*>(smem_raw));
 }
 
+// the most shared memory a block can have on the H100
+constexpr long long kMaxSmem = 232448;
+
 bool shape_ok(int B, int K, int KU, int substeps, int foh) {
   return B >= 1 && K >= 2 && substeps >= 1 && KU == (foh ? K : K - 1) &&
          (long long)B * (K - 1) < (1LL << 31);
@@ -66,13 +83,30 @@ bool shape_ok(int B, int K, int KU, int substeps, int foh) {
 
 }  // namespace
 
+// Shared memory of one discretize block, bytes (0 for a variant it does
+// not take); the launcher refuses more than kMaxSmem.
+extern "C" long long disc_mono_smem_bytes(int elem_bytes, int method,
+                                          int foh) {
+  return disc::dispatch(
+      elem_bytes, 0, method, foh, 0, [&](auto mdl, auto tab, auto fh,
+                                         auto val) {
+        return (int)disc::disc_smem_bytes<decltype(mdl), decltype(tab),
+                                          decltype(fh)::value,
+                                          decltype(val)>();
+      });
+}
+
+extern "C" int disc_mono_threads() { return disc::kDiscThreads; }
+extern "C" int disc_mono_prof_slots() { return disc::kDiscProfSlots; }
+
 // X (B, K, n), U (B, KU, m), t (B,), par (B, p) -> A (B, K-1, n, n),
-// Bm (B, K-1, n, m), C (B, K-1, n, m; FOH only, else ignored), z (B, K-1, n)
+// Bm (B, K-1, n, m), C (B, K-1, n, m; FOH only, else ignored), z (B, K-1, n);
+// prof: null, or (B (K-1), kDiscProfSlots) int64 phase counters
 extern "C" int disc_mono_launch(int elem_bytes, int model, int method,
                                 int foh, void* stream, int B, int K, int KU,
                                 int substeps, const void* X, const void* U,
                                 const void* t, const void* par, void* A,
-                                void* Bm, void* C, void* z) {
+                                void* Bm, void* C, void* z, void* prof) {
   if (!shape_ok(B, K, KU, substeps, foh)) return (int)cudaErrorInvalidValue;
   return disc::dispatch(
       elem_bytes, model, method, foh, (int)cudaErrorInvalidValue,
@@ -81,10 +115,18 @@ extern "C" int disc_mono_launch(int elem_bytes, int model, int method,
         using Tab = decltype(tab);
         using T = decltype(val);
         constexpr bool FOH = decltype(fh)::value;
-        disc_mono_kernel<Model, Tab, FOH, T>
-            <<<B * (K - 1), 32, 0, (cudaStream_t)stream>>>(
-                K, KU, substeps, (const T*)X, (const T*)U, (const T*)t,
-                (const T*)par, (T*)A, (T*)Bm, (T*)C, (T*)z);
+        constexpr long long smem = disc::disc_smem_bytes<Model, Tab, FOH, T>();
+        auto kern = disc_mono_kernel<Model, Tab, FOH, T>;
+        if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+        if (smem > 48 * 1024) {
+          const cudaError_t e = cudaFuncSetAttribute(
+              kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          if (e != cudaSuccess) return (int)e;
+        }
+        kern<<<B * (K - 1), disc::kDiscThreads, smem,
+               (cudaStream_t)stream>>>(
+            K, KU, substeps, (const T*)X, (const T*)U, (const T*)t,
+            (const T*)par, (T*)A, (T*)Bm, (T*)C, (T*)z, (long long*)prof);
         return (int)cudaGetLastError();
       });
 }

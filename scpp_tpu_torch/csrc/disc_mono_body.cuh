@@ -22,66 +22,125 @@ __host__ __device__ inline double dsqrt(double a) { return sqrt(a); }
 __host__ __device__ inline float dabs(float a) { return fabsf(a); }
 __host__ __device__ inline double dabs(double a) { return fabs(a); }
 
-// ---------------------------------------------------------------------------
-// Forward-mode dual number: a value and one tangent. Each operation's
-// tangent follows the rule torch.func's jvp uses for it, so a flow map
-// evaluated on Dual<T> seeded on input direction j gives f and column j of
-// [df/dx | df/du], as the reference's jvp does (disc_mono.py
-// _flow_jac_flat). Parameters enter as plain T (no tangent).
-
+// a / b, correctly rounded as `/` rounds it, without the device's slow
+// path for a zero numerator, which the tangents of dual numbers meet all
+// the time (a direction that does not reach an output): for a finite
+// nonzero b, 0 / b is the zero of sign(a) xor sign(b), and so is a * b
+#ifdef __CUDA_ARCH__
+__device__ inline float tdiv(float a, float b) {
+  const bool z = a == 0.f && fabsf(b) < INFINITY && b != 0.f;
+  const float q = __fdiv_rn(z ? 1.f : a, b);
+  return z ? __fmul_rn(a, b) : q;
+}
+__device__ inline double tdiv(double a, double b) {
+  const bool z = a == 0.0 && fabs(b) < INFINITY && b != 0.0;
+  const double q = __ddiv_rn(z ? 1.0 : a, b);
+  return z ? __dmul_rn(a, b) : q;
+}
+#else
 template <typename T>
+inline T tdiv(T a, T b) {
+  return a / b;
+}
+#endif
+
+// ---------------------------------------------------------------------------
+// Forward-mode dual numbers: a value and K tangents. Each operation's
+// tangents follow the rule torch.func's jvp uses for it, so a flow map
+// evaluated on Dual<T, K> seeded on K input directions gives f and those
+// K columns of [df/dx | df/du], as the reference's jvp does (disc_mono.py
+// _flow_jac_flat), each tangent bit for bit what it would be alone; the
+// value is computed once. Parameters enter as plain T (no tangent).
+
+template <typename T, int K>
 struct Dual {
-  T v, d;
-  __host__ __device__ Dual() : v(0), d(0) {}
-  __host__ __device__ Dual(T v_, T d_) : v(v_), d(d_) {}
+  T v, d[K];
 };
-
-template <typename T>
-__host__ __device__ inline Dual<T> operator+(Dual<T> a, Dual<T> b) {
-  return {a.v + b.v, a.d + b.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator+(Dual<T, K> a,
+                                                 Dual<T, K> b) {
+  Dual<T, K> o;
+  o.v = a.v + b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = a.d[k] + b.d[k];
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator+(Dual<T> a, T b) {
-  return {a.v + b, a.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator+(Dual<T, K> a, T b) {
+  a.v = a.v + b;
+  return a;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator-(Dual<T> a, Dual<T> b) {
-  return {a.v - b.v, a.d - b.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator-(Dual<T, K> a,
+                                                 Dual<T, K> b) {
+  Dual<T, K> o;
+  o.v = a.v - b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = a.d[k] - b.d[k];
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator-(T a, Dual<T> b) {
-  return {a - b.v, -b.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator-(T a, Dual<T, K> b) {
+  Dual<T, K> o;
+  o.v = a - b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = -b.d[k];
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator-(Dual<T> a) {
-  return {-a.v, -a.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator-(Dual<T, K> a) {
+  Dual<T, K> o;
+  o.v = -a.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = -a.d[k];
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator*(Dual<T> a, Dual<T> b) {
-  return {a.v * b.v, a.d * b.v + a.v * b.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator*(Dual<T, K> a,
+                                                 Dual<T, K> b) {
+  Dual<T, K> o;
+  o.v = a.v * b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator*(T a, Dual<T> b) {
-  return {a * b.v, a * b.d};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator*(T a, Dual<T, K> b) {
+  Dual<T, K> o;
+  o.v = a * b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = a * b.d[k];
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator/(Dual<T> a, Dual<T> b) {
-  const T v = a.v / b.v;
-  return {v, (a.d - b.d * v) / b.v};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator/(Dual<T, K> a,
+                                                 Dual<T, K> b) {
+  Dual<T, K> o;
+  o.v = a.v / b.v;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = tdiv(a.d[k] - b.d[k] * o.v, b.v);
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> operator/(Dual<T> a, T b) {
-  return {a.v / b, a.d / b};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> operator/(Dual<T, K> a, T b) {
+  Dual<T, K> o;
+  o.v = a.v / b;
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = tdiv(a.d[k], b);
+  return o;
 }
-template <typename T>
-__host__ __device__ inline Dual<T> dsqrt(Dual<T> a) {
-  const T v = dsqrt(a.v);
-  return {v, a.d / (T(2) * v)};
+template <typename T, int K>
+__host__ __device__ inline Dual<T, K> dsqrt(Dual<T, K> a) {
+  Dual<T, K> o;
+  o.v = dsqrt(a.v);
+#pragma unroll
+  for (int k = 0; k < K; ++k) o.d[k] = tdiv(a.d[k], T(2) * o.v);
+  return o;
 }
 
 // ---------------------------------------------------------------------------
-// Models: `flow(x, u, par, f)` over a scalar type S (T or Dual<T>), with
-// the parameters as T.
+// Models: `flow(x, u, par, f)` over a scalar type S (T or Dual<T, K>),
+// with the parameters as T.
 
 // RocketQuat (scpp_tpu/models/rocket_quat.py flow_map; rocketQuat.cpp:7-37):
 // the same expressions in the same order, the rotation matrix and the
@@ -227,139 +286,412 @@ __host__ __device__ inline void step_update(T (&y)[R],
 }
 
 // ---------------------------------------------------------------------------
-// Discretize: one interval per 32-thread block.
+// Discretize: one interval per block of `nthreads` threads (a multiple of
+// 32; the kernel launches kDiscThreads = 64, two warps).
 //
 // The augmented state is [x | Y], Y = [Phi | Y_B | (Y_C) | y_z] (n rows,
 // ncols columns), integrated under
 //   x' = dt f(x, u(tau)),
 //   Y' = dt (A Y + [0 | B (1 - tau) | B tau | f - A x - B u])   (FOH)
 //   Y' = dt (A Y + [0 | B | f - A x - B u])                      (ZOH)
-// Thread c < ncols owns column c of Y, thread ncols owns x: each keeps its
-// n values and its stage slopes in registers. Per stage, thread j < n + m
-// evaluates the flow map on dual numbers seeded on input direction j and
-// writes column j of [A | B] to shared memory (thread 0 also writes f);
-// threads i < n form r_i = f_i - (A x)_i - (B u)_i; then every column
-// thread takes its slope A y_c + R_c. Three barriers per stage.
+// The state's recursion does not read Y; the stage Jacobians [A | B]_i,
+// f_i and r_i = f_i - A_i x_i - B_i u_i depend only on stage i's x input
+// and u(tau_i); and each column of Y evolves on its own given them. So
+// each substep runs three parts, a block barrier after each:
+//  (a) the x chain: the last warp integrates x through the substep's
+//      stages, lane r < n owning row r of x (its stage slopes dt f_i read
+//      back from shared memory), lane 0 evaluating the flow map on each
+//      stage input; x_i, u(tau_i) and f_i go to shared memory;
+//  (b) the Jacobians: the substep's stages times its n + m input
+//      directions, kDiscDirs directions of a stage to a thread, each an
+//      evaluation of the flow map on dual numbers with kDiscDirs tangents
+//      (its columns of [A | B]_i, stored as rows of the transpose); after
+//      a barrier the threads form r_i, one row each;
+//  (c) the Y recursion: thread c < ncols owns column c of Y (its n values
+//      in registers, its stage slopes in shared memory) and takes it
+//      through the substep's stages with no barrier: per stage one n x n
+//      matrix-vector product A_i y (rows of the transpose read four at a
+//      time), R's column and the slope dt (A_i y + R_i).
+// The last warp runs the next substep's x chain while the first runs this
+// one's Y recursion: (a) writes nothing (c) reads. Every sum runs in the
+// order of the layout this replaced (and of `_disc_plain` up to
+// reassociation): stage inputs and steps as stage_input / step_update,
+// A y over q ascending from zero, then R, then dt; r as f - (A x) - (B u).
+// So no output depends on the thread count. Against the one-warp layout
+// this replaced, the outputs move by an ulp or so in float32 on the card
+// once tdiv below takes the tangents' zero numerators off the device's
+// division (diag/disc_versus.py compares the two builds).
+//
+// The code is kept small: an SM fetches the instructions of all its warps
+// through one instruction cache, and four warps each in its own 8 KB of
+// code already halve the issue rate (diag/pipe_probe.py, "icode"). So the
+// stage loops are not unrolled: the tableau's step coefficients (h a_ij,
+// h b_i, rounded to T once, as stage_input and step_update round them) and
+// nodes sit in shared memory, and one copy of each part's code serves
+// every stage.
 
-template <class Model, bool FOH>
+constexpr int kDiscThreads = 64;
+constexpr int kDiscDirs = 2;  // Jacobian columns a thread evaluates at once
+
+__host__ __device__ constexpr int up4(int v) { return (v + 3) / 4 * 4; }
+
+template <class Model, class Tab, bool FOH, typename T>
 struct DiscShape {
   static constexpr int n = Model::n, m = Model::m, nm = n + m;
   static constexpr int ncols = n + m + (FOH ? m : 0) + 1;
-  static constexpr int xlane = ncols;
-  static_assert(nm <= 32 && ncols + 1 <= 32,
-                "one 32-thread block per interval");
+  static constexpr int np = up4(n);  // a column, padded to 4
+  // a row of [A | B] transposed: np, plus 16 bytes, so that the rows of
+  // consecutive threads start in different banks
+  static constexpr int js = np + 16 / int(sizeof(T));
+  static constexpr int S = Tab::S;
+  // stages evaluated (a prefix: only dopri5's last, FSAL, stage is not)
+  static constexpr int SU = used<Tab>(S - 1) ? S : S - 1;
+  static_assert(n <= 32 && m <= 32 && ncols <= 32,
+                "the x chain and the columns of Y take one warp each");
+  // shared memory, in elements of T, every region at a multiple of 4 (16
+  // bytes in float): x_i (SU, n), u(tau_i) (SU, m), f_i (SU, n), r_i
+  // (SU, np), [A | B]_i transposed (SU, nm, js), the columns' stage slopes
+  // (SU, np / 4, ncols) quads (a column's quads ncols apart, so that the
+  // columns read consecutive quads), a zero column (np), the coefficients
+  // T(h a_ij) (SU, S - 1) and T(h b_i) (S), the parameters (p); then the
+  // nodes c_i as doubles (SU)
+  static constexpr int xs = 0;
+  static constexpr int us = up4(xs + SU * n);
+  static constexpr int fs = up4(us + SU * m);
+  static constexpr int rs = up4(fs + SU * n);
+  static constexpr int JT = up4(rs + SU * np);
+  static constexpr int ks = up4(JT + SU * nm * js);
+  static constexpr int zc = up4(ks + SU * ncols * np);
+  static constexpr int ca = zc + np;
+  static constexpr int cb = ca + SU * (S - 1);
+  static constexpr int ps = cb + S;
+  static constexpr int elems = up4(ps + Model::p);
 };
 
-template <class Model>
-__host__ __device__ constexpr int disc_smem_elems() {
-  // x stage, [A | B], f, r
-  return Model::n + Model::n * (Model::n + Model::m) + 2 * Model::n;
+// shared memory of the discretize body, bytes: the T elements, then the
+// nodes
+template <class Model, class Tab, bool FOH, typename T>
+__host__ __device__ constexpr long long disc_smem_bytes() {
+  using Sh = DiscShape<Model, Tab, FOH, T>;
+  return (long long)Sh::elems * sizeof(T) + 8LL * Sh::SU;
+}
+
+// Per-part clock counters (optional): thread 0 (column 0 of Y) reads
+// clock64() after the barrier that ends each part and adds the cycles
+// since its last reading to that part: the x chain (the first substep's,
+// then each substep's wait for the next one's after its own Y recursion),
+// the Jacobians with r, the Y recursion. The two slots after the parts
+// hold the block's whole run in clock64() cycles and in globaltimer
+// nanoseconds.
+enum DiscPhase { kXChain, kJacobians, kYRecursion, kDiscPhases };
+constexpr int kDiscProfSlots = kDiscPhases + 2;
+
+#ifdef __CUDACC__
+__device__ __forceinline__ long long wall_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+}
+#endif
+
+template <typename T>
+struct alignas(16) Quad {
+  T v[4];
+};
+
+// a product rounded on its own, never fused into a following sum
+__host__ __device__ inline float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+__host__ __device__ inline double mul_rn(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+// v[0 .. R) from quads p[0], p[stride], ... (R rounded up to 4 readable);
+// store_quads writes them back, zeros in the padding
+template <int R, typename T>
+__host__ __device__ inline void load_quads(const Quad<T>* p, int stride,
+                                           T (&v)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; r += 4) {
+    const Quad<T> q = p[(r / 4) * stride];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (r + e < R) v[r + e] = q.v[e];
+  }
+}
+template <int R, typename T>
+__host__ __device__ inline void store_quads(Quad<T>* p, int stride,
+                                            const T (&v)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; r += 4) {
+    Quad<T> q;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) q.v[e] = r + e < R ? v[r + e] : T(0);
+    p[(r / 4) * stride] = q;
+  }
+}
+// the same for contiguous values at p (16-byte aligned)
+template <int R, typename T>
+__host__ __device__ inline void load_col(const T* p, T (&v)[R]) {
+  load_quads(reinterpret_cast<const Quad<T>*>(p), 1, v);
+}
+template <int R, typename T>
+__host__ __device__ inline void store_col(T* p, const T (&v)[R]) {
+  store_quads(reinterpret_cast<Quad<T>*>(p), 1, v);
+}
+
+// stage_input and step_update for a stage index known only at run time:
+// the same sums in the same order, with the coefficients read from
+// ca_i[j] = T(h a_ij) and cb[i] = T(h b_i); slope(j, k) puts stage j's
+// slope in k. The loops run to their compile-time bounds with the stage's
+// own terms predicated, so the slope loads can be issued ahead.
+template <class Tab, int R, typename T, class F>
+__host__ __device__ inline void stage_input_at(const T (&y)[R], int i,
+                                               const T* ca_i, F&& slope,
+                                               T (&yi)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) yi[r] = y[r];
+#pragma unroll
+  for (int j = 0; j < Tab::S - 1; ++j) {
+    if (j < i) {
+      const T coef = ca_i[j];
+      T kj[R];
+      slope(j, kj);
+#pragma unroll
+      for (int r = 0; r < R; ++r) yi[r] = yi[r] + coef * kj[r];
+    }
+  }
+}
+
+template <class Tab, int R, typename T, class F>
+__host__ __device__ inline void step_update_at(T (&y)[R], const T* cb,
+                                               F&& slope) {
+#pragma unroll
+  for (int i = 0; i < Tab::S; ++i) {
+    if (Tab::b(i) != 0.0) {
+      const T coef = cb[i];
+      T ki[R];
+      slope(i, ki);
+#pragma unroll
+      for (int r = 0; r < R; ++r) y[r] = y[r] + coef * ki[r];
+    }
+  }
 }
 
 // Interval `iv` of B * (K - 1): X (B, K, n), U (B, KU, m) with KU = K
 // (FOH) or K - 1 (ZOH), t (B,), par (B, p); A (B, K-1, n, n),
-// Bm and C (B, K-1, n, m), z (B, K-1, n).
+// Bm and C (B, K-1, n, m), z (B, K-1, n). `smem` holds disc_smem_bytes
+// (16-byte aligned); `prof` is null or this block's kDiscProfSlots
+// counters. Needs nthreads % 32 == 0 and nthreads >= 32.
 template <class Model, class Tab, bool FOH, typename T>
-__device__ void disc_block(long long iv, int tid, int K, int KU,
-                                    int substeps, const T* X, const T* U,
-                                    const T* ts, const T* par, T* A, T* Bm,
-                                    T* C, T* z, T* smem) {
-  using Sh = DiscShape<Model, FOH>;
+__device__ void disc_block(long long iv, int tid, int nthreads, int K,
+                           int KU, int substeps, const T* X, const T* U,
+                           const T* ts, const T* par, T* A, T* Bm, T* C,
+                           T* z, T* smem, long long* prof) {
+  using Sh = DiscShape<Model, Tab, FOH, T>;
   constexpr int n = Sh::n, m = Sh::m, nm = Sh::nm, ncols = Sh::ncols;
+  constexpr int np = Sh::np, js = Sh::js, SU = Sh::SU, S = Sh::S;
   const long long b = iv / (K - 1);
   const int k = (int)(iv % (K - 1));
   const T* xk = X + (b * K + k) * n;
   const T* u0g = U + (b * KU + k) * m;
   const T* u1g = FOH ? u0g + m : u0g;
-  const T* pb = par + b * Model::p;
   const T dt = ts[b] / T(K - 1);
-
-  T* xs = smem;           // stage state (n)
-  T* J = xs + n;          // [A | B] (n, nm)
-  T* fs = J + n * nm;     // f (n)
-  T* rs = fs + n;         // f - A x - B u (n)
-
-  T u0[m], du[m];
-#pragma unroll
-  for (int j = 0; j < m; ++j) {
-    u0[j] = u0g[j];
-    du[j] = u1g[j] - u0g[j];
-  }
-  T y[n], yi[n], kk[Tab::S][n];
-#pragma unroll
-  for (int r = 0; r < n; ++r) {
-    y[r] = tid == Sh::xlane ? xk[r] : T(tid == r ? 1 : 0);
-    yi[r] = T(0);
-  }
   const double h = 1.0 / substeps;
-  for (int s = 0; s < substeps; ++s) {
-    const double t0 = s * h;
+
+  T* xs = smem + Sh::xs;
+  T* us = smem + Sh::us;
+  T* fs = smem + Sh::fs;
+  T* rs = smem + Sh::rs;
+  T* JT = smem + Sh::JT;
+  T* ks = smem + Sh::ks;
+  T* zc = smem + Sh::zc;
+  T* ca = smem + Sh::ca;
+  T* cb = smem + Sh::cb;
+  T* pb = smem + Sh::ps;
+  double* cn = reinterpret_cast<double*>(smem + Sh::elems);
+
+  // the parameters and the tableau go to shared memory once
+  for (int j = tid; j < Model::p; j += nthreads) pb[j] = par[b * Model::p + j];
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < Tab::S; ++i) {
-      if (!used<Tab>(i)) continue;
-      const double tau = t0 + Tab::c(i) * h;
-      stage_input<Tab>(y, kk, i, h, yi);
-      if (tid == Sh::xlane) {
+    for (int i = 0; i < SU; ++i) {
+      cn[i] = Tab::c(i);
 #pragma unroll
-        for (int r = 0; r < n; ++r) xs[r] = yi[r];
+      for (int j = 0; j < S - 1; ++j) ca[i * (S - 1) + j] = T(h * Tab::a(i, j));
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) cb[i] = T(h * Tab::b(i));
+#pragma unroll
+    for (int r = 0; r < np; ++r) zc[r] = T(0);
+  }
+
+  long long pacc[kDiscPhases] = {}, t_last = 0, t0_cycles = 0, t0_ns = 0;
+  const bool counting = prof != nullptr && tid == 0;
+  if (counting) {
+    t_last = t0_cycles = clock64();
+    t0_ns = wall_ns();
+  }
+  auto tick = [&](int phase) {
+    if (!counting) return;
+    const long long now = clock64();
+    pacc[phase] += now - t_last;
+    t_last = now;
+  };
+
+  // the x chain (the last warp): lane r < n holds row r of x, lane j < m
+  // u's entry j
+  const int lane = tid - (nthreads - 32);
+  const bool xwarp = lane >= 0;
+  T xv[1] = {T(0)}, u0 = T(0), du = T(0);
+  if (xwarp && lane < n) xv[0] = xk[lane];
+  if (xwarp && lane < m) {
+    u0 = u0g[lane];
+    du = u1g[lane] - u0g[lane];
+  }
+  auto x_slope = [&](int j, T (&kj)[1]) { kj[0] = dt * fs[j * n + lane]; };
+  // substep s's stages: x_i, u_i, f_i
+  auto x_chain = [&](int s) {
+#pragma unroll 1
+    for (int i = 0; i < SU; ++i) {
+      const double tau = s * h + cn[i] * h;
+      if (lane < n) {
+        T xi[1];
+        stage_input_at<Tab>(xv, i, ca + i * (S - 1), x_slope, xi);
+        xs[i * n + lane] = xi[0];
       }
-      __syncthreads();
-      T u[m];
+      if (lane < m) us[i * m + lane] = FOH ? u0 + T(tau) * du : u0;
+      __syncwarp();
+      if (lane == 0) {
+        T xl[n], ul[m], fl[n];
 #pragma unroll
-      for (int j = 0; j < m; ++j)
-        u[j] = FOH ? u0[j] + T(tau) * du[j] : u0[j];
-      if (tid < nm) {
-        Dual<T> xd[n], ud[m], fd[n];
+        for (int r = 0; r < n; ++r) xl[r] = xs[i * n + r];
 #pragma unroll
-        for (int r = 0; r < n; ++r) xd[r] = Dual<T>(xs[r], T(r == tid));
+        for (int j = 0; j < m; ++j) ul[j] = us[i * m + j];
+        Model::flow(xl, ul, pb, fl);
 #pragma unroll
-        for (int j = 0; j < m; ++j) ud[j] = Dual<T>(u[j], T(n + j == tid));
-        Model::flow(xd, ud, pb, fd);
-#pragma unroll
-        for (int r = 0; r < n; ++r) J[r * nm + tid] = fd[r].d;
-        if (tid == 0) {
-#pragma unroll
-          for (int r = 0; r < n; ++r) fs[r] = fd[r].v;
-        }
+        for (int r = 0; r < n; ++r) fs[i * n + r] = fl[r];
       }
-      __syncthreads();
-      if (tid < n) {
-        const T* Ar = J + tid * nm;
-        T ax = T(0), bu = T(0);
-        for (int c = 0; c < n; ++c) ax = ax + Ar[c] * xs[c];
+      __syncwarp();
+    }
+    if (lane < n) step_update_at<Tab>(xv, cb, x_slope);
+  };
+
+  // column c of Y (thread c < ncols): Phi starts at the identity
+  const int c = tid;
+  const bool ycol = c < ncols;
+  T y[n];
 #pragma unroll
-        for (int j = 0; j < m; ++j) bu = bu + Ar[n + j] * u[j];
-        rs[tid] = fs[tid] - ax - bu;
-      }
-      __syncthreads();
-      if (tid < ncols) {
-        // R's column `tid`: zero under Phi, then B (1 - tau) | B tau (FOH)
-        // or B (ZOH), then r
-        const int c = tid;
-        const T w1 = FOH ? T(1.0 - tau) : T(1), w2 = T(tau);
+  for (int r = 0; r < n; ++r) y[r] = T(r == c ? 1 : 0);
+  // this column's slope of stage i: quads kc[(i np / 4 + q) ncols]
+  Quad<T>* kc = reinterpret_cast<Quad<T>*>(ks) + c;
+  auto y_slope = [&](int j, T (&kj)[n]) {
+    load_quads(kc + j * (np / 4) * ncols, ncols, kj);
+  };
+
+  // s = -1 only runs the first substep's x chain
+  __syncthreads();
+  for (int s = -1; s < substeps; ++s) {
+    if (s >= 0) {
+      // (b) [A | B]_i's columns j0 .. j0 + KD - 1: one evaluation on dual
+      // numbers with KD tangents each
+      constexpr int KD = kDiscDirs, groups = (nm + KD - 1) / KD;
+      for (int w = tid; w < SU * groups; w += nthreads) {
+        const int i = w / groups, j0 = (w % groups) * KD;
+        Dual<T, KD> xd[n], ud[m], fd[n];
 #pragma unroll
         for (int r = 0; r < n; ++r) {
-          const T* Ar = J + r * nm;
-          T acc = T(0);
-          for (int q = 0; q < n; ++q) acc = acc + Ar[q] * yi[q];
-          T Rc = T(0);
-          if (c == ncols - 1)
-            Rc = rs[r];
-          else if (c >= n && c < n + m)
-            Rc = Ar[c] * w1;
-          else if (c >= n + m)
-            Rc = Ar[c - m] * w2;
-          kk[i][r] = dt * (acc + Rc);
-        }
-      } else if (tid == Sh::xlane) {
+          xd[r].v = xs[i * n + r];
 #pragma unroll
-        for (int r = 0; r < n; ++r) kk[i][r] = dt * fs[r];
+          for (int e = 0; e < KD; ++e) xd[r].d[e] = T(r == j0 + e);
+        }
+#pragma unroll
+        for (int q = 0; q < m; ++q) {
+          ud[q].v = us[i * m + q];
+#pragma unroll
+          for (int e = 0; e < KD; ++e) ud[q].d[e] = T(n + q == j0 + e);
+        }
+        Model::flow(xd, ud, pb, fd);
+#pragma unroll
+        for (int e = 0; e < KD; ++e) {
+          if (j0 + e < nm) {
+            T col[n];
+#pragma unroll
+            for (int r = 0; r < n; ++r) col[r] = fd[r].d[e];
+            store_col(JT + (i * nm + j0 + e) * js, col);
+          }
+        }
       }
+      __syncthreads();
+      // r_i = f_i - A_i x_i - B_i u_i, one row each
+      for (int w = tid; w < SU * n; w += nthreads) {
+        const int i = w / n, r = w % n;
+        const T* JTi = JT + i * nm * js;
+        T ax = T(0), bu = T(0);
+#pragma unroll
+        for (int q = 0; q < n; ++q) ax = ax + JTi[q * js + r] * xs[i * n + q];
+#pragma unroll
+        for (int j = 0; j < m; ++j)
+          bu = bu + JTi[(n + j) * js + r] * us[i * m + j];
+        rs[i * np + r] = fs[i * n + r] - ax - bu;
+      }
+      __syncthreads();
+      tick(kJacobians);
+
+      // (c) the Y recursion of column c
+      if (ycol) {
+#pragma unroll 1
+        for (int i = 0; i < SU; ++i) {
+          const double tau = s * h + cn[i] * h;
+          T yi[n];
+          stage_input_at<Tab>(y, i, ca + i * (S - 1), y_slope, yi);
+          const T* JTi = JT + i * nm * js;
+          T acc[n];
+#pragma unroll
+          for (int r = 0; r < n; ++r) acc[r] = T(0);
+#pragma unroll
+          for (int q = 0; q < n; ++q) {
+            T a[n];
+            load_col(JTi + q * js, a);
+#pragma unroll
+            for (int r = 0; r < n; ++r) acc[r] = acc[r] + a[r] * yi[q];
+          }
+          // R's column c: zero under Phi (0 x 1), then B (1 - tau) | B tau
+          // (FOH) or B (ZOH), then r (r x 1)
+          const bool bcol = c >= n && c < ncols - 1, first = c < n + m;
+          const T* src = c == ncols - 1 ? rs + i * np
+                         : bcol          ? JTi + (first ? c : c - m) * js
+                                         : zc;
+          const T wr = !bcol ? T(1) : first ? (FOH ? T(1.0 - tau) : T(1))
+                                            : T(tau);
+          T Rc[n];
+          load_col(src, Rc);
+          T kq[n];
+#pragma unroll
+          for (int r = 0; r < n; ++r)
+            kq[r] = dt * (acc[r] + mul_rn(Rc[r], wr));
+          store_quads(kc + i * (np / 4) * ncols, ncols, kq);
+        }
+        step_update_at<Tab>(y, cb, y_slope);
+      }
+      tick(kYRecursion);
     }
-    step_update<Tab>(y, kk, h);
+    // (a) the next substep's x chain, beside this one's Y recursion
+    if (xwarp && s + 1 < substeps) x_chain(s + 1);
+    __syncthreads();
+    tick(kXChain);
   }
-  if (tid < ncols) {
-    const int c = tid;
+
+  if (ycol) {
     const long long o = iv;
 #pragma unroll
     for (int r = 0; r < n; ++r) {
@@ -372,6 +704,11 @@ __device__ void disc_block(long long iv, int tid, int K, int KU,
       else
         z[o * n + r] = y[r];
     }
+  }
+  if (counting) {
+    for (int p = 0; p < kDiscPhases; ++p) prof[p] = pacc[p];
+    prof[kDiscPhases] = clock64() - t0_cycles;
+    prof[kDiscPhases + 1] = wall_ns() - t0_ns;
   }
 }
 

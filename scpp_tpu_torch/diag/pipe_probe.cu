@@ -10,6 +10,11 @@
 // ffma: each thread runs acc[R][C] += x[r] y[m] from registers, 4096
 // times, for the tile shapes of the products; prints warp FMAs issued per
 // cycle on the SM (4 is the peak: 128 fp32 lanes).
+// icode: the instruction caches. Each warp of 4 (one block an SM) loops
+// over N straight-line FFMAs (16 N bytes of code; 8 independent chains, so
+// operands never stall issue), all four warps the same code or each its own
+// copy (4 x 16 N bytes); prints cycles per warp instruction: 1 while the
+// code stays cached, more once it no longer fits.
 #include <cstdio>
 #include <cuda_runtime.h>
 
@@ -85,6 +90,44 @@ __global__ void ffma_kernel(int iters, long long* cyc, float* sink) {
   if (s == 1.2345f) sink[0] = s;
 }
 
+template <int N, int COPY>
+__device__ __forceinline__ float straight(int iters, float x) {
+  float a[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) a[k] = x + k;
+  const float m = 0.999f + COPY * 1e-4f * x, c = 1e-3f * x;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < N / 8; ++u)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = fmaf(a[k], m, c);
+  }
+  float s = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s += a[k];
+  return s;
+}
+
+template <int N, bool COPIES>
+__global__ void icode_kernel(int iters, long long* cyc, float* sink) {
+  const int w = threadIdx.x / 32;
+  const float x = threadIdx.x * 1e-6f;
+  __syncthreads();
+  const long long c0 = clock64();
+  float s;
+  if (!COPIES || w == 0)
+    s = straight<N, 0>(iters, x);
+  else if (w == 1)
+    s = straight<N, 1>(iters, x);
+  else if (w == 2)
+    s = straight<N, 2>(iters, x);
+  else
+    s = straight<N, 3>(iters, x);
+  const long long c1 = clock64();
+  if (threadIdx.x % 32 == 0) cyc[blockIdx.x * 4 + w] = c1 - c0;
+  if (s == 1.2345f) sink[0] = s;
+}
+
 double mean_cycles(long long* cyc) {
   long long h[kBlocks];
   cudaMemcpy(h, cyc, sizeof(h), cudaMemcpyDeviceToHost);
@@ -115,12 +158,29 @@ bool ffma_case(long long* cyc, void* sink) {
   return true;
 }
 
+template <int N, bool COPIES>
+bool icode_case(long long* cyc, void* sink) {
+  const int iters = 64;
+  for (int rep = 0; rep < 2; ++rep)
+    icode_kernel<N, COPIES><<<kBlocks, 128>>>(iters, cyc, (float*)sink);
+  if (cudaDeviceSynchronize() != cudaSuccess) return false;
+  long long h[kBlocks * 4];
+  cudaMemcpy(h, cyc, sizeof(h), cudaMemcpyDeviceToHost);
+  double c = 0;
+  for (long long v : h) c += v;
+  printf("icode %3d KB of straight code a warp, %s: %.2f cycles a warp "
+         "instruction\n", N * 16 / 1024,
+         COPIES ? "each warp its own copy" : "one copy for the 4 warps",
+         c / (kBlocks * 4) / ((double)iters * N));
+  return true;
+}
+
 }  // namespace
 
 int main() {
   long long* cyc;
   void* sink;
-  if (cudaMalloc(&cyc, kBlocks * sizeof(long long)) != cudaSuccess ||
+  if (cudaMalloc(&cyc, 4 * kBlocks * sizeof(long long)) != cudaSuccess ||
       cudaMalloc(&sink, 16) != cudaSuccess) {
     printf("no CUDA device\n");
     return 1;
@@ -135,7 +195,15 @@ int main() {
             lds_case<16, 2>("16 addresses, 2 lanes each", cyc, sink) &&
             ffma_case<6, 6>(cyc, sink) && ffma_case<4, 3>(cyc, sink) &&
             ffma_case<12, 3>(cyc, sink) && ffma_case<12, 6>(cyc, sink) &&
-            ffma_case<8, 8>(cyc, sink);
+            ffma_case<8, 8>(cyc, sink) && icode_case<256, false>(cyc, sink) &&
+            icode_case<512, false>(cyc, sink) &&
+            icode_case<1024, false>(cyc, sink) &&
+            icode_case<2048, false>(cyc, sink) &&
+            icode_case<4096, false>(cyc, sink) &&
+            icode_case<256, true>(cyc, sink) &&
+            icode_case<512, true>(cyc, sink) &&
+            icode_case<1024, true>(cyc, sink) &&
+            icode_case<2048, true>(cyc, sink);
   cudaFree(cyc);
   cudaFree(sink);
   if (!ok) printf("FAILED: %s\n", cudaGetErrorString(cudaGetLastError()));

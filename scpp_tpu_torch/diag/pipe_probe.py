@@ -1,7 +1,10 @@
 """What limits the calibration products on one SM of the card: the
 shared-memory pipe's cycles per warp load (4-, 8- and 16-byte loads, each
 lane at its own address or all at one) and the rate of warp FMAs for the
-register tiles the products use (``csrc/calib_body.cuh``).
+register tiles the products use (``csrc/calib_body.cuh``); and the
+instruction caches: cycles per warp instruction for four warps looping
+over 4 to 64 KB of straight-line code, one copy shared or each warp its
+own (what sizes ``csrc/disc_mono_body.cuh``'s code).
 
     python -m scpp_tpu_torch.diag.pipe_probe
 

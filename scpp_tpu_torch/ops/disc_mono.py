@@ -28,6 +28,12 @@ from scpp_tpu_torch.trajectory import DiscretizationData, TrajectoryData
 __all__ = ["multiple_shooting_fused", "nonlinear_defect_cost_fused"]
 
 _METHODS = ("rk4", "dopri5")     # the kernels' method ids
+# The discretize kernel's phase counters (csrc/disc_mono_body.cuh, enum
+# DiscPhase), in order; a (B (K-1), PROF_SLOTS) int64 buffer holds each
+# block's clock64() cycles per phase, then its whole run in cycles and in
+# globaltimer ns.
+PHASES = ("x_chain", "jacobians", "y_recursion")
+PROF_SLOTS = len(PHASES) + 2
 
 
 def _flat(X, U, t, par, foh):
@@ -106,11 +112,29 @@ def _load_lib():
     if lib.disc_mono_launch.argtypes is None:
         c_int, ptr = ctypes.c_int, ctypes.c_void_p
         head = [c_int] * 4 + [ptr] + [c_int] * 4 + [ptr] * 4
-        lib.disc_mono_launch.argtypes = head + [ptr] * 4
+        lib.disc_mono_launch.argtypes = head + [ptr] * 5
         lib.resim_mono_launch.argtypes = head + [ptr]
         lib.disc_mono_launch.restype = c_int
         lib.resim_mono_launch.restype = c_int
+        lib.disc_mono_smem_bytes.argtypes = [c_int] * 3
+        lib.disc_mono_smem_bytes.restype = ctypes.c_longlong
+        lib.disc_mono_prof_slots.argtypes = []
+        lib.disc_mono_prof_slots.restype = c_int
+        lib.disc_mono_threads.argtypes = []
+        lib.disc_mono_threads.restype = c_int
     return lib
+
+
+def threads() -> int:
+    """Threads of one ``disc_mono`` block, read from the built kernel."""
+    return int(_load_lib().disc_mono_threads())
+
+
+def smem_bytes(dtype, method, foh) -> int:
+    """Shared memory of one ``disc_mono`` block, bytes, read from the
+    built kernel."""
+    return int(_load_lib().disc_mono_smem_bytes(
+        dtype.itemsize, _METHODS.index(method), int(foh)))
 
 
 def _checked(model, X, U, t, par, substeps, method, foh):
@@ -140,22 +164,36 @@ def _checked(model, X, U, t, par, substeps, method, foh):
         [Bn, K, KU, substeps], [a.data_ptr() for a in (X, U, t, par)]
 
 
-def _disc_cuda(model, X, U, t, par, substeps, method, foh):
-    """Launch ``disc_mono_kernel`` on the current stream."""
+def _disc_cuda(model, X, U, t, par, substeps, method, foh, prof=None):
+    """Launch ``disc_mono_kernel`` on the current stream. ``prof``, an
+    int64 (B (K-1), PROF_SLOTS) tensor on the same card, receives the
+    phase counters (see ``PHASES``)."""
     head, dims, ins = _checked(model, X, U, t, par, substeps, method, foh)
     Bn, K, n = X.shape
     m = U.shape[-1]
+    if prof is not None and (prof.dtype != torch.int64
+                             or prof.device != X.device
+                             or tuple(prof.shape) != (Bn * (K - 1),
+                                                      PROF_SLOTS)
+                             or not prof.is_contiguous()):
+        raise ValueError(f"prof: {prof.dtype} {tuple(prof.shape)} on "
+                         f"{prof.device}, expected a contiguous int64 "
+                         f"{(Bn * (K - 1), PROF_SLOTS)} on {X.device}")
     A = X.new_empty((Bn, K - 1, n, n))
     Bm = X.new_empty((Bn, K - 1, n, m))
     C = X.new_empty((Bn, K - 1, n, m)) if foh else None
     z = X.new_empty((Bn, K - 1, n))
     lib = _load_lib()
+    if lib.disc_mono_prof_slots() != PROF_SLOTS:
+        raise RuntimeError("csrc/disc_mono.cu counts other phases than "
+                           "disc_mono.PHASES")
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = lib.disc_mono_launch(*head, stream, *dims, *ins, A.data_ptr(),
                                    Bm.data_ptr(),
                                    C.data_ptr() if foh else None,
-                                   z.data_ptr())
+                                   z.data_ptr(),
+                                   None if prof is None else prof.data_ptr())
     if err != 0:
         raise RuntimeError(f"disc_mono kernel launch failed: CUDA error {err}")
     kernels.launches["disc_mono"] += 1

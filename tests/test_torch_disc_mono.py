@@ -42,39 +42,62 @@ VARIANTS = [(True, "dopri5"), (True, "rk4"), (False, "dopri5"),
 VARIANT_IDS = ["foh-dopri5", "foh-rk4", "zoh-dopri5", "zoh-rk4"]
 
 # Built once per element type, in parallel (HOST_F32 or not), and linked
-# into one library.
+# into one library. The discretize body runs at the kernel's own block
+# (kDiscThreads threads) unless told otherwise.
 HARNESS = r"""
 #include "disc_mono_body.cuh"
+#include <limits>
 #include <thread>
 #include <vector>
 
-template <class F>
-void run_block(int nthreads, F&& body) {
+// blocks 0 .. nblocks - 1 one after another on one set of threads:
+// body(block, tid), then a barrier, then `between` on thread 0 and a
+// barrier before the next block
+template <class F, class G>
+void run_blocks(int nthreads, long long nblocks, F&& body, G&& between) {
   std::barrier<> bar(nthreads);
   g_barrier = &bar;
+  HostWarps warps(nthreads);
   blockDim.x = nthreads;
   std::vector<std::thread> threads;
   for (int t = 0; t < nthreads; ++t)
-    threads.emplace_back([&, t]() { threadIdx.x = t; body(t); });
+    threads.emplace_back([&, t]() {
+      threadIdx.x = t;
+      for (long long blk = 0; blk < nblocks; ++blk) {
+        if (t == 0) between();
+        bar.arrive_and_wait();
+        body(blk, t);
+        bar.arrive_and_wait();
+      }
+    });
   for (auto& th : threads) th.join();
 }
 
+// every block starts from shared memory full of NaN, so a read of a value
+// the block did not write shows in its outputs
 template <typename T>
-int disc_run(int method, int foh, int B, int K, int KU, int substeps,
-             const T* X, const T* U, const T* t, const T* par, T* A, T* Bm,
-             T* C, T* z) {
+int disc_run(int method, int foh, int nthreads, int B, int K, int KU,
+             int substeps, const T* X, const T* U, const T* t, const T* par,
+             T* A, T* Bm, T* C, T* z, long long* prof) {
   return disc::dispatch(sizeof(T), 0, method, foh, -1,
       [&](auto mdl, auto tab, auto fh, auto) {
         using Model = decltype(mdl);
         using Tab = decltype(tab);
         constexpr bool FOH = decltype(fh)::value;
-        std::vector<T> smem(disc::disc_smem_elems<Model>());
-        for (long long iv = 0; iv < (long long)B * (K - 1); ++iv)
-          run_block(32, [&](int tid) {
-            disc::disc_block<Model, Tab, FOH, T>(iv, tid, K, KU, substeps,
-                                                 X, U, t, par, A, Bm, C, z,
-                                                 smem.data());
-          });
+        if (nthreads < 32 || nthreads % 32 != 0) return -1;
+        std::vector<T> smem(disc::disc_smem_bytes<Model, Tab, FOH, T>() /
+                            sizeof(T));
+        run_blocks(nthreads, (long long)B * (K - 1),
+            [&](long long iv, int tid) {
+              disc::disc_block<Model, Tab, FOH, T>(
+                  iv, tid, nthreads, K, KU, substeps, X, U, t, par, A, Bm,
+                  C, z, smem.data(),
+                  prof ? prof + iv * disc::kDiscProfSlots : nullptr);
+            },
+            [&]() {
+              std::fill(smem.begin(), smem.end(),
+                        std::numeric_limits<T>::quiet_NaN());
+            });
         return 0;
       });
 }
@@ -89,23 +112,25 @@ int resim_run(int method, int foh, int nthreads, int B, int K, int KU,
         using Tab = decltype(tab);
         constexpr bool FOH = decltype(fh)::value;
         std::vector<T> red(K - 1);
-        for (long long b = 0; b < B; ++b)
-          run_block(nthreads, [&](int tid) {
-            disc::resim_block<Model, Tab, FOH, T>(b, tid, nthreads, K, KU,
-                                                  substeps, X, U, t, par, J,
-                                                  red.data());
-          });
+        run_blocks(nthreads, B,
+            [&](long long b, int tid) {
+              disc::resim_block<Model, Tab, FOH, T>(b, tid, nthreads, K, KU,
+                                                    substeps, X, U, t, par,
+                                                    J, red.data());
+            },
+            [] {});
         return 0;
       });
 }
 
 #define HOST_RUN(sfx, T)                                                  \
-  extern "C" int host_disc##sfx(int method, int foh, int B, int K, int KU, \
-                                int substeps, const T* X, const T* U,     \
-                                const T* t, const T* par, T* A, T* Bm,    \
-                                T* C, T* z) {                             \
-    return disc_run<T>(method, foh, B, K, KU, substeps, X, U, t, par, A,  \
-                       Bm, C, z);                                         \
+  extern "C" int host_disc##sfx(int method, int foh, int nthreads, int B,  \
+                                int K, int KU, int substeps, const T* X,  \
+                                const T* U, const T* t, const T* par,     \
+                                T* A, T* Bm, T* C, T* z,                  \
+                                long long* prof) {                        \
+    return disc_run<T>(method, foh, nthreads, B, K, KU, substeps, X, U,   \
+                       t, par, A, Bm, C, z, prof);                        \
   }                                                                       \
   extern "C" int host_resim##sfx(int method, int foh, int nthreads, int B, \
                                  int K, int KU, int substeps, const T* X, \
@@ -120,24 +145,46 @@ HOST_RUN(_f32, float)
 thread_local Dim3 threadIdx;
 Dim3 blockDim;
 std::barrier<>* g_barrier;
+SpinBarrier** g_warp_barriers;
+unsigned long long (*g_warp_xch)[2][32];
 HOST_RUN(, double)
 
-// f (N, n) and [A | B] (N, n, n + m) of the model on dual numbers, one
-// direction at a time, as the discretize kernel's threads evaluate them
+extern "C" int host_disc_threads() { return disc::kDiscThreads; }
+extern "C" int host_disc_prof_slots() { return disc::kDiscProfSlots; }
+extern "C" long long host_disc_smem_bytes(int elem_bytes, int method,
+                                          int foh) {
+  return disc::dispatch(elem_bytes, 0, method, foh, 0,
+      [&](auto mdl, auto tab, auto fh, auto val) {
+        return (int)disc::disc_smem_bytes<decltype(mdl), decltype(tab),
+                                          decltype(fh)::value,
+                                          decltype(val)>();
+      });
+}
+
+// f (N, n) and [A | B] (N, n, n + m) of the model on dual numbers,
+// kDiscDirs directions at a time, as the discretize kernel's threads
+// evaluate them
 extern "C" int host_flow_jac(int N, const double* x, const double* u,
                              const double* par, double* f, double* J) {
   using M = disc::RocketQuat;
-  using D = disc::Dual<double>;
-  constexpr int n = M::n, m = M::m;
+  constexpr int n = M::n, m = M::m, K = disc::kDiscDirs;
+  using D = disc::Dual<double, K>;
   for (int i = 0; i < N; ++i) {
-    for (int j = 0; j < n + m; ++j) {
+    for (int j0 = 0; j0 < n + m; j0 += K) {
       D xd[n], ud[m], fd[n];
-      for (int r = 0; r < n; ++r) xd[r] = D(x[i * n + r], r == j);
-      for (int r = 0; r < m; ++r) ud[r] = D(u[i * m + r], n + r == j);
+      for (int r = 0; r < n; ++r) {
+        xd[r].v = x[i * n + r];
+        for (int e = 0; e < K; ++e) xd[r].d[e] = r == j0 + e;
+      }
+      for (int r = 0; r < m; ++r) {
+        ud[r].v = u[i * m + r];
+        for (int e = 0; e < K; ++e) ud[r].d[e] = n + r == j0 + e;
+      }
       M::flow(xd, ud, par + i * M::p, fd);
       for (int r = 0; r < n; ++r) {
-        J[(i * n + r) * (n + m) + j] = fd[r].d;
-        if (j == 0) f[i * n + r] = fd[r].v;
+        for (int e = 0; e < K && j0 + e < n + m; ++e)
+          J[(i * n + r) * (n + m) + j0 + e] = fd[r].d[e];
+        if (j0 == 0) f[i * n + r] = fd[r].v;
       }
     }
   }
@@ -154,12 +201,13 @@ def host_lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("disc_host")
     (d / "harness.cpp").write_text(HARNESS)
     lib = d / "libdisc_host.so"
-    objs = [d / f"harness{i}.o" for i in range(2)]
+    flags = ([], ["-DHOST_F32"])
+    objs = [d / f"harness{i}.o" for i in range(len(flags))]
     builds = [subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-c", "-fPIC", "-pthread", *flag,
          "-include", os.path.join(CSRC, "host_shim.h"), "-I", CSRC,
          "-o", str(o), str(d / "harness.cpp")], stderr=subprocess.PIPE)
-        for o, flag in zip(objs, ([], ["-DHOST_F32"]))]
+        for o, flag in zip(objs, flags)]
     for b in builds:
         _, err = b.communicate(timeout=120)
         assert b.returncode == 0, err.decode()
@@ -169,11 +217,14 @@ def host_lib(tmp_path_factory):
     so = ctypes.CDLL(str(lib))
     for sfx, c_t in (("", ctypes.c_double), ("_f32", ctypes.c_float)):
         P = ctypes.POINTER(c_t)
-        getattr(so, "host_disc" + sfx).argtypes = [ctypes.c_int] * 6 + [P] * 8
+        getattr(so, "host_disc" + sfx).argtypes = \
+            [ctypes.c_int] * 7 + [P] * 8 + [ctypes.c_void_p]
         getattr(so, "host_resim" + sfx).argtypes = \
             [ctypes.c_int] * 7 + [P] * 5
     P = ctypes.POINTER(ctypes.c_double)
     so.host_flow_jac.argtypes = [ctypes.c_int] + [P] * 5
+    so.host_disc_smem_bytes.argtypes = [ctypes.c_int] * 3
+    so.host_disc_smem_bytes.restype = ctypes.c_longlong
     return so
 
 
@@ -200,7 +251,13 @@ def plain(foh, method):
     return disc_mono._disc_plain(*args), disc_mono._resim_plain(*args)
 
 
-def host_run(lib, ins, foh, method, nthreads=32):
+def host_run(lib, ins, foh, method, nthreads=32, disc_threads=None,
+             prof=None):
+    """The host build of both bodies on these inputs: resim at
+    ``nthreads`` threads, discretize at ``disc_threads`` (default: the
+    kernel's own block); ``prof``, an int64 array of (B (K-1), slots),
+    takes the phase counters."""
+    disc_threads = disc_threads or lib.host_disc_threads()
     X, U, t, par = [np.ascontiguousarray(a.numpy()) for a in ins]
     B, K_, n = X.shape
     m = U.shape[-1]
@@ -214,8 +271,9 @@ def host_run(lib, ins, foh, method, nthreads=32):
     mid = disc_mono._METHODS.index(method)
     dims = (B, K_, U.shape[1], SUBSTEPS)
     assert getattr(lib, "host_disc" + sfx)(
-        mid, int(foh), *dims, *ptr, *[a.ctypes.data_as(P)
-                                      for a in outs[:4]]) == 0
+        mid, int(foh), disc_threads, *dims, *ptr,
+        *[a.ctypes.data_as(P) for a in outs[:4]],
+        None if prof is None else prof.ctypes.data) == 0
     assert getattr(lib, "host_resim" + sfx)(
         mid, int(foh), nthreads, *dims, *ptr,
         outs[4].ctypes.data_as(P)) == 0
@@ -268,6 +326,58 @@ def test_kernel_body_float32_near_float64(host_lib, foh, method):
     print(f"float32 distance from float64 plain, kernel body / plain: "
           + ", ".join(f"{k} {d[k]:.2e} / {d_plain[k]:.2e}" for k in d))
     assert max(d.values()) <= F32_CEILING, d
+
+
+def first_scenario(foh):
+    """inputs(foh) cut to its first scenario (4 intervals)."""
+    return [a[:1].contiguous() for a in inputs(foh)]
+
+
+@pytest.mark.parametrize("foh,method", VARIANTS, ids=VARIANT_IDS)
+def test_kernel_body_independent_of_thread_count(host_lib, foh, method):
+    """The discretize body at the kernel's own block against 32, 96 and
+    128 threads: the x chain moves to another warp (at 32 threads, the warp
+    of Y's columns) and the Jacobians and r rows to other threads, but
+    every output keeps its arithmetic, so all agree bit for bit, in float64
+    and float32."""
+    for dtype in (F64, torch.float32):
+        ins = [a.to(dtype) for a in first_scenario(foh)]
+        ref = host_run(host_lib, ins, foh, method)[0]
+        for nt in (32, 96, 128):
+            got = host_run(host_lib, ins, foh, method, disc_threads=nt)[0]
+            for g, r in zip(got, ref):
+                assert (g is None) == (r is None)
+                if r is not None:
+                    assert bool(torch.isfinite(r).all())
+                    assert torch.equal(g, r), (dtype, nt)
+
+
+def test_kernel_body_phase_counters(host_lib):
+    """With a counter buffer each block records its three parts (x chain,
+    Jacobians with r, Y recursion), its whole run in clock cycles and in
+    nanoseconds; the parts never exceed the run; the outputs are those of
+    a run without counters."""
+    ins = first_scenario(True)
+    slots = host_lib.host_disc_prof_slots()
+    assert slots == 5
+    prof = np.zeros((ins[0].shape[1] - 1, slots), np.int64)
+    got = host_run(host_lib, ins, True, "dopri5", prof=prof)[0]
+    ref = host_run(host_lib, ins, True, "dopri5")[0]
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert (prof[:, :3] > 0).all(), prof
+    assert (prof[:, :3].sum(1) <= prof[:, 3]).all(), prof
+    assert (prof[:, 4] > 0).all(), prof
+
+
+def test_shared_memory_fits(host_lib):
+    """The discretize block's shared memory (``disc_smem_bytes``, what the
+    launcher gives it) fits an H100 block's 227 KB in every variant and
+    type, and a double block takes more than a float one."""
+    for foh, method in VARIANTS:
+        mid = disc_mono._METHODS.index(method)
+        f32, f64 = (host_lib.host_disc_smem_bytes(eb, mid, int(foh))
+                    for eb in (4, 8))
+        assert 0 < f32 < f64 <= 232448, (foh, method, f32, f64)
 
 
 def test_dual_jacobian_matches_torch_func(host_lib):
