@@ -2,11 +2,17 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py OTHER_CSRC [OTHER_CSRC ...]
+
 Phases, one line each: the card; the build of every kernel from
 ``scpp_tpu_torch/csrc``; each kernel held against its plain PyTorch
 version at the main path's shapes (``cr_solve`` also at budgets of 1
 and 2 slots of its shared-memory ring, bit for bit against the full
-one); the main path itself (bench.py's 64
+one); given OTHER_CSRC (another checkout's ``scpp_tpu_torch/csrc``,
+e.g. a parent commit's unpacked with ``git archive``), the fused
+kernels against that build's (``scpp_tpu_torch.diag.disc_versus``:
+registers, spills, code size, outputs and times of both); the main path
+itself (bench.py's 64
 dispersed RocketQuat K=30 SCvx solves at the flagship configuration,
 through ``scpp_tpu_torch.algos.scvx.solve_scvx``) with the launch count
 of its kernel; the same solves on the fused dynamics path
@@ -343,7 +349,50 @@ def check_fused_kernels(tag, cases):
               f"{100 * b_ms / graph_ms:.1f}% in the graph")
         if name == "disc_mono":
             print_disc_parts(tag, args, ms)
+        else:
+            smem = [disc_mono.resim_smem_bytes(dt, "dopri5", True)
+                    for dt in (torch.float32, torch.float64)]
+            print(f"resim_mono {tag}: one block a scenario, "
+                  f"{disc_mono.resim_threads()} threads and {smem[0]} "
+                  f"bytes of shared memory a block (float64 {smem[1]})")
     return ok, measures
+
+
+# resim_mono against another build, float64: the same sums in the same
+# order, so J within this of the other's, relative to 1 + max |J|
+VERSUS_F64 = 1e-14
+
+
+def check_versus(tag, dirs):
+    """This checkout's fused kernels against those built from each of
+    ``dirs`` (another checkout's ``scpp_tpu_torch/csrc``), by
+    ``diag.disc_versus``: registers, spills, blocks an SM, code size,
+    outputs and times of both. Gates: disc_mono's outputs bit for bit in
+    both types, resim_mono's float64 J within VERSUS_F64; resim_mono's
+    float32 J is printed, bit for bit or its distance."""
+    from scpp_tpu_torch.diag import disc_versus
+    res = disc_versus.versus(dirs)
+    ok = True
+    for (fn, dtype, case, d), (same, diff, rel) in res["outputs"].items():
+        if fn == "disc":
+            good = same
+        else:
+            good = "float64" not in dtype or rel <= VERSUS_F64
+        ok &= good
+        if not good:
+            print(f"versus {tag}: {fn} {dtype} {case} against {d}: "
+                  f"{'bit for bit' if same else f'{rel:.3e} relative'} "
+                  f"-> FAIL", file=sys.stderr)
+    for d in dirs:
+        for fn in ("disc", "resim"):
+            mine = min(res["graph_ms"][(fn, "this")])
+            other = min(res["graph_ms"][(fn, d)])
+            print(f"versus {tag}: {fn} float32 in a CUDA graph, this "
+                  f"{mine:.4f} ms against {other:.4f} ms ({d}): "
+                  f"{100 * (mine / other - 1):+.1f}%")
+    print(f"versus {tag}: disc_mono bit for bit and resim_mono float64 "
+          f"within {VERSUS_F64:g} -> {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def print_disc_parts(tag, args, ms_off):
@@ -1269,7 +1318,7 @@ def probe_entries(launches, measures, max_err, smem_host_ms, smem_ms,
     return entries
 
 
-def main():
+def main(other_csrc=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1381,6 +1430,12 @@ def main():
     if not (ok_all and ok_fused and ok_cr and ok_soc):
         print("kernel vs plain: FAILED", file=sys.stderr)
         return 1
+    if other_csrc:
+        if not check_versus(tag, other_csrc):
+            return 1
+    else:
+        print("versus: no other build given (python3 chip_smoke.py "
+              "OTHER_CSRC ...), not run")
 
     # ---- the main path, the fused dynamics path, the staged path ----
     # Each path's launch counts are set to 0 just before its warm run and
@@ -1491,4 +1546,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -19,11 +19,16 @@
 // takes the variational recursion, a column of Y a lane, n-term sums over
 // rows of [A | B] read four at a time, while the last warp already
 // integrates the next substep's state. See disc_mono_body.cuh. Resim: one
-// block per scenario, one thread per interval, then a sum over the
+// block per scenario of six warps (192 threads; 5.4 KB of shared memory
+// in float32, 10.8 KB in float64, resim_mono_smem_bytes), an interval a
+// lane, the rows of the state over the warps (the mass rate and the
+// copies; each acceleration row; the quaternion rates with one angular
+// acceleration; the other two), one block barrier a stage between the
+// rows' stage inputs and the flow map's rows; then a sum over the
 // intervals in a fixed order (no atomics), so the result does not change
-// from launch to launch. The Pallas layout (slot scratch, 8-row tiles, the
-// scenario sub-batches of its grid, the iota tangent bases) answered
-// Mosaic's limits and is not carried over.
+// from launch to launch. The Pallas layout (slot scratch,
+// 8-row tiles, the scenario sub-batches of its grid, the iota tangent
+// bases) answered Mosaic's limits and is not carried over.
 //
 // What bounds them. Discretize at the main path's shapes (FOH, dopri5,
 // 6 steps, 6 evaluated stages a step): ~1.07 GFLOP for ~2.5 MB, so
@@ -38,8 +43,17 @@
 // warps each in its own 16 KB already slow eightfold; this layout's loops
 // are rolled. The device's division runs a slow path for a zero
 // numerator, which the tangents meet at most directions; disc::tdiv
-// avoids it. Resim: ~20 MFLOP for ~0.14 MB, well under a microsecond of
-// either, so its launch and its one-thread-an-interval chain dominate.
+// avoids it. Resim: ~20 MFLOP for ~0.14 MB, 0.0003 ms of either; it runs
+// at about 0.012 ms in a CUDA graph on the same card (PERF.md, section 6,
+// row 3; one thread an interval before it, 0.032 ms), of which ~0.002 ms
+// is a launch's floor (kernel 5's whole launch in a graph). What bounds it
+// now, from development builds on that card: each stage's chain on the
+// warp that owns the slowest rows, the device's division and square root
+// above all (their check and branch to a slow path keep a warp's
+// divisions one after another, so the rows are spread to give no warp
+// more than two), and the instruction cache that the six warps'
+// different code shares (seven or eight warps ran slower, and so did
+// every variant that grew the code).
 //
 // Interface: plain C functions, loaded with ctypes; each launches on the
 // given stream, allocates nothing, and returns the cudaError_t of the
@@ -64,12 +78,12 @@ disc_mono_kernel(int K, int KU, int substeps, const T* X, const T* U,
 }
 
 template <class Model, class Tab, bool FOH, typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(32 * disc::ResimWarps<Model>::warps)
 resim_mono_kernel(int K, int KU, int substeps, const T* X, const T* U,
                   const T* ts, const T* par, T* J) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  disc::resim_block<Model, Tab, FOH, T>(blockIdx.x, threadIdx.x, blockDim.x,
-                                        K, KU, substeps, X, U, ts, par, J,
+  disc::resim_block<Model, Tab, FOH, T>(blockIdx.x, threadIdx.x, K, KU,
+                                        substeps, X, U, ts, par, J,
                                         reinterpret_cast<T*>(smem_raw));
 }
 
@@ -131,14 +145,25 @@ extern "C" int disc_mono_launch(int elem_bytes, int model, int method,
       });
 }
 
+// Threads and shared memory (bytes) of one resim block (0 for a variant
+// it does not take), as resim_mono_launch gives them
+extern "C" int resim_mono_threads() {
+  return 32 * disc::ResimWarps<disc::RocketQuat>::warps;
+}
+extern "C" long long resim_mono_smem_bytes(int elem_bytes, int method,
+                                           int foh) {
+  return disc::dispatch(
+      elem_bytes, 0, method, foh, 0, [&](auto mdl, auto, auto, auto val) {
+        return (int)disc::resim_smem_bytes<decltype(mdl), decltype(val)>();
+      });
+}
+
 // same inputs -> J (B,)
 extern "C" int resim_mono_launch(int elem_bytes, int model, int method,
                                  int foh, void* stream, int B, int K, int KU,
                                  int substeps, const void* X, const void* U,
                                  const void* t, const void* par, void* J) {
   if (!shape_ok(B, K, KU, substeps, foh)) return (int)cudaErrorInvalidValue;
-  const int threads = (K - 1 + 31) / 32 * 32 < 256 ? (K - 1 + 31) / 32 * 32
-                                                   : 256;
   return disc::dispatch(
       elem_bytes, model, method, foh, (int)cudaErrorInvalidValue,
       [&](auto mdl, auto tab, auto fh, auto val) {
@@ -146,10 +171,13 @@ extern "C" int resim_mono_launch(int elem_bytes, int model, int method,
         using Tab = decltype(tab);
         using T = decltype(val);
         constexpr bool FOH = decltype(fh)::value;
+        constexpr long long smem = disc::resim_smem_bytes<Model, T>();
+        static_assert(smem <= 48 * 1024, "no opt-in for more");
         resim_mono_kernel<Model, Tab, FOH, T>
-            <<<B, threads, sizeof(T) * (K - 1), (cudaStream_t)stream>>>(
-                K, KU, substeps, (const T*)X, (const T*)U, (const T*)t,
-                (const T*)par, (T*)J);
+            <<<B, 32 * disc::ResimWarps<Model>::warps, smem,
+               (cudaStream_t)stream>>>(K, KU, substeps, (const T*)X,
+                                       (const T*)U, (const T*)t,
+                                       (const T*)par, (T*)J);
         return (int)cudaGetLastError();
       });
 }

@@ -140,14 +140,86 @@ __host__ __device__ inline Dual<T, K> dsqrt(Dual<T, K> a) {
 
 // ---------------------------------------------------------------------------
 // Models: `flow(x, u, par, f)` over a scalar type S (T or Dual<T, K>),
-// with the parameters as T.
+// with the parameters as T; and a row at a time on T, by the same
+// expressions (divisions by tdiv), for a thread that owns row r:
+// `row_u(r, u, par)` for a row that does not read x (`reads_x(r)` false),
+// `row_x(r, x, u, par)` for the others (x anything indexed as x[i]).
+// A row alone may compile to other fused multiply-adds than in the whole
+// map, so the two agree to an ulp or so on the card (bit for bit on the
+// host, which fuses none).
 
 // RocketQuat (scpp_tpu/models/rocket_quat.py flow_map; rocketQuat.cpp:7-37):
 // the same expressions in the same order, the rotation matrix and the
-// three small contractions written out component-wise as there.
+// three small contractions written out component-wise as there. Rows 0
+// (the mass rate) and 11-13 (the angular acceleration) read u alone.
 struct RocketQuat {
   static constexpr int n = 14, m = 4, p = 10;
+  __host__ __device__ static constexpr bool reads_x(int r) {
+    return r >= 1 && r <= 10;
+  }
+  // entry (a, c) of quat_to_rotmat on the raw components
+  // (scpp_tpu/models/mathlib.py)
+  template <typename T>
+  __host__ __device__ static T rot(int a, int c, T qw, T qx, T qy, T qz) {
+    const T one(1), two(2);
+    switch (3 * a + c) {
+      case 0: return one - two * (qy * qy + qz * qz);
+      case 1: return two * (qx * qy - qw * qz);
+      case 2: return two * (qx * qz + qw * qy);
+      case 3: return two * (qx * qy + qw * qz);
+      case 4: return one - two * (qx * qx + qz * qz);
+      case 5: return two * (qy * qz - qw * qx);
+      case 6: return two * (qx * qz - qw * qy);
+      case 7: return two * (qy * qz + qw * qx);
+      default: return one - two * (qx * qx + qy * qy);
+    }
+  }
 
+  // rows 0, 11, 12, 13
+  template <typename T>
+  __host__ __device__ static T row_u(int r, const T* u, const T* par) {
+    const T alpha_m = par[0];
+    const T* J_B = par + 4;
+    const T* r_T_B = par + 7;
+    const T t0 = u[0], t1 = u[1], t2 = u[2];
+    const T zero(0);
+    switch (r) {
+      case 0: return (-alpha_m) * dsqrt(t0 * t0 + t1 * t1 + t2 * t2);
+      case 11: return tdiv(r_T_B[1] * t2 - r_T_B[2] * t1 + zero, J_B[0]);
+      case 12: return tdiv(r_T_B[2] * t0 - r_T_B[0] * t2 + zero, J_B[1]);
+      default: return tdiv(r_T_B[0] * t1 - r_T_B[1] * t0 + u[3], J_B[2]);
+    }
+  }
+
+  // rows 1 .. 10: the velocity, (R t) / mass + g_I, the quaternion rate
+  template <typename T, typename X>
+  __host__ __device__ static T row_x(int r, const X& x, const T* u,
+                                     const T* par) {
+    const T half(0.5);
+    const T qw = x[7], qx = x[8], qy = x[9], qz = x[10];
+    if (r <= 3) return x[r + 3];
+    if (r <= 6) {
+      const int a = r - 4;
+      return tdiv(rot(a, 0, qw, qx, qy, qz) * u[0] +
+                      rot(a, 1, qw, qx, qy, qz) * u[1] +
+                      rot(a, 2, qw, qx, qy, qz) * u[2],
+                  T(x[0])) +
+             par[1 + a];
+    }
+    const T w0 = x[11], w1 = x[12], w2 = x[13];
+    switch (r) {
+      case 7: return half * ((-w0) * qx - w1 * qy - w2 * qz);
+      case 8: return half * (w0 * qw + w2 * qy - w1 * qz);
+      case 9: return half * (w1 * qw - w2 * qx + w0 * qz);
+      default: return half * (w2 * qw + w1 * qx - w0 * qy);
+    }
+  }
+
+  // the whole flow map on one thread, the reference's expressions as
+  // the one-thread kernels have always compiled them: the discretize
+  // kernel evaluates it on values and on dual numbers. row_u and row_x
+  // hold the same expressions row by row: edit them with it
+  // (tests/test_torch_disc_mono.py holds the three bit for bit)
   template <typename S, typename T>
   __host__ __device__ static void flow(const S* x, const S* u, const T* par,
                                        S* f) {
@@ -252,38 +324,11 @@ __host__ __device__ constexpr bool used(int i) {
   return Tab::b(i) != 0.0 || i < Tab::S - 1;
 }
 
-// Slope sums in the order of integrators.rk_step: the stage input
+// The slope sums, in the order of integrators.rk_step: the stage input
 // y + sum_{j<i} (h a_ij) k_j over every j (zero coefficients included, as
-// there), the step y + sum_i (h b_i) k_i over the nonzero weights only.
-template <class Tab, int R, typename T>
-__host__ __device__ inline void stage_input(const T (&y)[R],
-                                            const T (&k)[Tab::S][R], int i,
-                                            double h, T (&yi)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) yi[r] = y[r];
-#pragma unroll
-  for (int j = 0; j < Tab::S - 1; ++j) {
-    if (j < i) {
-      const T coef = T(h * Tab::a(i, j));
-#pragma unroll
-      for (int r = 0; r < R; ++r) yi[r] = yi[r] + coef * k[j][r];
-    }
-  }
-}
-
-template <class Tab, int R, typename T>
-__host__ __device__ inline void step_update(T (&y)[R],
-                                            const T (&k)[Tab::S][R],
-                                            double h) {
-#pragma unroll
-  for (int i = 0; i < Tab::S; ++i) {
-    if (Tab::b(i) != 0.0) {
-      const T coef = T(h * Tab::b(i));
-#pragma unroll
-      for (int r = 0; r < R; ++r) y[r] = y[r] + coef * k[i][r];
-    }
-  }
-}
+// there), the step y + sum_i (h b_i) k_i over the nonzero weights only,
+// each coefficient T(h a_ij), T(h b_i) rounded once. Both kernels form
+// them so.
 
 // ---------------------------------------------------------------------------
 // Discretize: one interval per block of `nthreads` threads (a multiple of
@@ -315,7 +360,7 @@ __host__ __device__ inline void step_update(T (&y)[R],
 // The last warp runs the next substep's x chain while the first runs this
 // one's Y recursion: (a) writes nothing (c) reads. Every sum runs in the
 // order of the layout this replaced (and of `_disc_plain` up to
-// reassociation): stage inputs and steps as stage_input / step_update,
+// reassociation): stage inputs and steps in the slope sums' order,
 // A y over q ascending from zero, then R, then dt; r as f - (A x) - (B u).
 // So no output depends on the thread count. Against the one-warp layout
 // this replaced, the outputs move by an ulp or so in float32 on the card
@@ -326,7 +371,7 @@ __host__ __device__ inline void step_update(T (&y)[R],
 // through one instruction cache, and four warps each in its own 8 KB of
 // code already halve the issue rate (diag/pipe_probe.py, "icode"). So the
 // stage loops are not unrolled: the tableau's step coefficients (h a_ij,
-// h b_i, rounded to T once, as stage_input and step_update round them) and
+// h b_i, each rounded to T once) and
 // nodes sit in shared memory, and one copy of each part's code serves
 // every stage.
 
@@ -449,8 +494,8 @@ __host__ __device__ inline void store_col(T* p, const T (&v)[R]) {
   store_quads(reinterpret_cast<Quad<T>*>(p), 1, v);
 }
 
-// stage_input and step_update for a stage index known only at run time:
-// the same sums in the same order, with the coefficients read from
+// The slope sums for a stage index known only at run time, in their
+// order, with the coefficients read from
 // ca_i[j] = T(h a_ij) and cb[i] = T(h b_i); slope(j, k) puts stage j's
 // slope in k. The loops run to their compile-time bounds with the stage's
 // own terms predicated, so the slope loads can be issued ahead.
@@ -713,72 +758,218 @@ __device__ void disc_block(long long iv, int tid, int nthreads, int K,
 }
 
 // ---------------------------------------------------------------------------
-// Resim: one scenario per block, one interval per thread. Each thread
-// propagates its interval's start state over the interval and sums
-// |x_end - x_{k+1}| over the state (in state order) into shared memory;
-// thread 0 then adds the intervals' sums in interval order. No atomics:
-// the result does not depend on the launch.
+// Resim: J[b] = sum_k sum_i |x_end(k)_i - X[b, k+1, i]|, one scenario per
+// block, an interval a lane, the rows of x over the block's warps.
+//
+// Warp ResimWarps<Model>::warp(r) owns row r of every interval of a round
+// (32 intervals, one a lane): it forms its rows of each stage input and
+// step update (its slopes in registers, the stages unrolled, the sums in
+// the slope sums' order), writes its stage-input rows to shared memory,
+// and after the block's barrier evaluates its rows of the flow map
+// (row_x, reading the stage input's other rows there) and their slopes
+// dt f_r, rounded once. A row that does not read x (row_u: the mass rate
+// and the angular accelerations of RocketQuat) and u(tau) itself are
+// computed before the barrier, beside the chain: they wait for no other
+// warp. So a stage's chain is one barrier and, on each warp, its rows of
+// the flow map, where one thread an interval ran every row in turn. The
+// device's division and square root are the long parts of a row (each
+// runs one after another within a warp), so the warp map spreads them
+// over the warps. Every row keeps its expression and every sum its
+// order, so J does not depend on the lane or the round an interval
+// lands in.
+//
+// The defect: each warp forms |x_end,r - X[b, k+1, r]| of its rows (x_{k+1}
+// loaded ahead), warp 0 adds the n rows of its lane's interval in state
+// order; then thread 0 adds the intervals in interval order, a round at a
+// time, as the one-thread-an-interval layout this replaced did. No
+// atomics: the result does not depend on the launch.
 
-template <class Model, class Tab, bool FOH, typename T>
-__device__ T resim_interval(int substeps, const T* xk,
-                                     const T* xnext, const T* u0g,
-                                     const T* u1g, const T* pb, T dt) {
-  constexpr int n = Model::n, m = Model::m;
+// The resim block's warps and the warp of each row, by model
+template <class Model>
+struct ResimWarps;
+
+// RocketQuat: the mass rate (a square root) with the copies; each
+// acceleration row alone (a division by the mass each); the quaternion
+// rates with the last angular acceleration; the first two angular
+// accelerations. Each warp runs the divisions and square roots of its
+// rows one after another, and seven or eight warps ran slower than six on
+// the card (PERF.md, section 6, PR 13).
+template <>
+struct ResimWarps<RocketQuat> {
+  static constexpr int warps = 6;
+  __host__ __device__ static constexpr int warp(int r) {
+    return r <= 3 ? 0 : r <= 6 ? r - 3 : r <= 10 || r == 13 ? 4 : 5;
+  }
+};
+
+// shared memory of a block, bytes: the stage inputs (two buffers of
+// (n, 32), stages alternate), the defect's terms (n, 32), the intervals'
+// sums of a round (32), the parameters
+template <class Model, typename T>
+__host__ __device__ constexpr long long resim_smem_bytes() {
+  return (long long)sizeof(T) * (3 * Model::n * 32 + 32 + up4(Model::p));
+}
+
+// row i of an (n, 32) buffer at one lane
+template <typename T>
+struct LaneCol {
+  const T* p;
+  __host__ __device__ T operator[](int i) const { return p[i * 32]; }
+};
+
+// f(integral_constant<W>) for warp w, so that each warp's code holds its
+// own rows alone
+template <int Warps, int W = 0, class F>
+__device__ __forceinline__ void on_warp(int w, F&& f) {
+  if constexpr (W < Warps) {
+    if (w == W)
+      f(std::integral_constant<int, W>{});
+    else
+      on_warp<Warps, W + 1>(w, f);
+  }
+}
+
+// The rows of warp W (ResimWarps<Model>::warp(r) == W) of one interval at
+// one lane through every substep: x_k from xk, the inputs u0g, u1g, the
+// parameters pb; the stage inputs go through xs (two (n, 32) buffers);
+// the rows' x_end returned in y (the other entries unused).
+template <class Model, class Tab, bool FOH, int W, typename T>
+__device__ __forceinline__ void resim_rows(int lane, int substeps, T dt,
+                                           const T* xk, const T* u0g,
+                                           const T* u1g, const T* pb, T* xs,
+                                           T (&y)[Model::n]) {
+  using Rows = ResimWarps<Model>;
+  constexpr int n = Model::n, m = Model::m, S = Tab::S;
+  constexpr int SU = used<Tab>(S - 1) ? S : S - 1;
+  const double h = 1.0 / substeps;
+  // T(h a_ij) and T(h b_i), each rounded once
+  T ca[SU][S - 1], cb[S];
+#pragma unroll
+  for (int i = 0; i < SU; ++i)
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) ca[i][j] = T(h * Tab::a(i, j));
+#pragma unroll
+  for (int i = 0; i < S; ++i) cb[i] = T(h * Tab::b(i));
+#pragma unroll
+  for (int r = 0; r < n; ++r)
+    if (Rows::warp(r) == W) y[r] = xk[r];
   T u0[m], du[m];
 #pragma unroll
   for (int j = 0; j < m; ++j) {
     u0[j] = u0g[j];
     du[j] = u1g[j] - u0g[j];
   }
-  T y[n], yi[n], kk[Tab::S][n], f[n];
-#pragma unroll
-  for (int r = 0; r < n; ++r) y[r] = xk[r];
-  const double h = 1.0 / substeps;
   for (int s = 0; s < substeps; ++s) {
     const double t0 = s * h;
+    T kk[SU][n];
 #pragma unroll
-    for (int i = 0; i < Tab::S; ++i) {
-      if (!used<Tab>(i)) continue;
+    for (int i = 0; i < SU; ++i) {
       const double tau = t0 + Tab::c(i) * h;
-      stage_input<Tab>(y, kk, i, h, yi);
       T u[m];
 #pragma unroll
-      for (int j = 0; j < m; ++j)
-        u[j] = FOH ? u0[j] + T(tau) * du[j] : u0[j];
-      Model::flow(yi, u, pb, f);
+      for (int j = 0; j < m; ++j) u[j] = FOH ? u0[j] + T(tau) * du[j] : u0[j];
+      T* xb = xs + ((s * SU + i) & 1) * n * 32;
+      T f[n];
 #pragma unroll
-      for (int r = 0; r < n; ++r) kk[i][r] = dt * f[r];
+      for (int r = 0; r < n; ++r) {
+        if (Rows::warp(r) != W) continue;
+        T yi = y[r];
+#pragma unroll
+        for (int j = 0; j < S - 1; ++j)
+          if (j < i) yi = yi + ca[i][j] * kk[j][r];
+        xb[r * 32 + lane] = yi;
+        if (!Model::reads_x(r)) f[r] = Model::row_u(r, u, pb);
+      }
+      // Each warp reaches this barrier in its own instantiation, so the
+      // warps execute different bar.sync instructions. PTX defines
+      // bar.sync as barrier.sync.aligned, which asks every thread of the
+      // block to execute the same one; this relies on sm_90 counting the
+      // arrivals at barrier 0 whatever instruction they come from, as it
+      // does (J bit for bit on the card). The non-aligned barrier.sync
+      // grew the float32 kernel from 49 to 57 KB of code and ran slower
+      // (PERF.md, section 6, PR 13).
+      __syncthreads();
+      const LaneCol<T> x{xb + lane};
+#pragma unroll
+      for (int r = 0; r < n; ++r) {
+        if (Rows::warp(r) != W) continue;
+        if (Model::reads_x(r)) f[r] = Model::template row_x<T>(r, x, u, pb);
+        kk[i][r] = dt * f[r];
+      }
     }
-    step_update<Tab>(y, kk, h);
-  }
-  T d = T(0);
 #pragma unroll
-  for (int r = 0; r < n; ++r) d = d + dabs(y[r] - xnext[r]);
-  return d;
+    for (int i = 0; i < S; ++i)
+      if (Tab::b(i) != 0.0)
+#pragma unroll
+        for (int r = 0; r < n; ++r)
+          if (Rows::warp(r) == W) y[r] = y[r] + cb[i] * kk[i < SU ? i : 0][r];
+  }
 }
 
-// Scenario `b`: J[b] = sum_k sum_i |x_end(k)_i - X[b, k+1, i]|. `red`
-// holds K - 1 values.
+// Scenario `b`: ResimWarps<Model>::warps warps of 32 threads, an interval
+// a lane; `smem` holds resim_smem_bytes.
 template <class Model, class Tab, bool FOH, typename T>
-__device__ void resim_block(long long b, int tid, int nthreads,
-                                     int K, int KU, int substeps, const T* X,
-                                     const T* U, const T* ts, const T* par,
-                                     T* Jout, T* red) {
-  constexpr int n = Model::n, m = Model::m;
+__device__ void resim_block(long long b, int tid, int K, int KU,
+                            int substeps, const T* X, const T* U,
+                            const T* ts, const T* par, T* Jout, T* smem) {
+  using Rows = ResimWarps<Model>;
+  constexpr int n = Model::n, m = Model::m, S = Tab::S;
+  static_assert(used<Tab>(S - 1) || Tab::b(S - 1) == 0.0,
+                "every weighted stage is evaluated");
+  const int w = tid / 32, lane = tid % 32;
+  T* xs = smem;
+  T* ds = xs + 2 * n * 32;
+  T* red = ds + n * 32;
+  T* pb = red + 32;
+
+  for (int j = tid; j < Model::p; j += 32 * Rows::warps)
+    pb[j] = par[b * Model::p + j];
   const T dt = ts[b] / T(K - 1);
-  const T* pb = par + b * Model::p;
-  for (int k = tid; k < K - 1; k += nthreads) {
+  __syncthreads();
+
+  T J = T(0);
+  for (int k0 = 0; k0 < K - 1; k0 += 32) {
+    // a lane past the round's intervals runs the last one and keeps
+    // nothing
+    const bool live = k0 + lane < K - 1;
+    const int k = live ? k0 + lane : K - 2;
     const T* xk = X + (b * K + k) * n;
     const T* u0g = U + (b * KU + k) * m;
-    red[k] = resim_interval<Model, Tab, FOH>(substeps, xk, xk + n, u0g,
-                                             FOH ? u0g + m : u0g, pb, dt);
+    on_warp<Rows::warps>(w, [&](auto wc) {
+      constexpr int W = decltype(wc)::value;
+      // x_{k+1}'s rows, loaded ahead
+      T xn[n], y[n];
+#pragma unroll
+      for (int r = 0; r < n; ++r)
+        if (Rows::warp(r) == W) xn[r] = xk[n + r];
+      resim_rows<Model, Tab, FOH, W>(lane, substeps, dt, xk, u0g,
+                                     FOH ? u0g + m : u0g, pb, xs, y);
+      // the defect's terms of these rows
+#pragma unroll
+      for (int r = 0; r < n; ++r)
+        if (Rows::warp(r) == W) ds[r * 32 + lane] = dabs(y[r] - xn[r]);
+    });
+    __syncthreads();
+    // the n rows of each interval in state order, on warp 0
+    if (w == 0 && live) {
+      T d = T(0);
+#pragma unroll
+      for (int r = 0; r < n; ++r) d = d + ds[r * 32 + lane];
+      red[lane] = d;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // the round's sums, loaded at once, added in interval order
+      const int cnt = 32 < K - 1 - k0 ? 32 : K - 1 - k0;
+      T v[32];
+#pragma unroll
+      for (int l = 0; l < 32; ++l) v[l] = l < cnt ? red[l] : T(0);
+#pragma unroll
+      for (int l = 0; l < 32; ++l)
+        if (l < cnt) J = J + v[l];
+    }
   }
-  __syncthreads();
-  if (tid == 0) {
-    T J = T(0);
-    for (int k = 0; k < K - 1; ++k) J = J + red[k];
-    Jout[b] = J;
-  }
+  if (tid == 0) Jout[b] = J;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The fused dynamics kernels of this checkout against those built from
 other kernel sources, on the card: their outputs bit for bit (or the
-largest difference), each discretize kernel's time from the host and in a
-CUDA graph, in turns, and the registers, spills and resident blocks an SM
-that ``nvcc -Xptxas -v`` gives for each build.
+largest difference, absolute and relative to 1 + max |other|), each
+kernel's time from the host and in a CUDA graph, in turns, the registers,
+spills, resident blocks an SM and code size that ``nvcc -Xptxas -v`` and
+``cuobjdump`` give for each build's FOH dopri5 kernels.
 
     python -m scpp_tpu_torch.diag.disc_versus OTHER_CSRC [OTHER_CSRC ...]
 
@@ -14,7 +15,9 @@ includes, such as another checkout's ``scpp_tpu_torch/csrc`` unpacked with
 RocketQuat scenarios at K=30: the main path's step-0 trajectories and the
 same perturbed by 1% with a seeded numpy RNG, FOH, dopri5 with 6 substeps
 (discretize) and 8 (resim), in float32 and float64. On the card only.
-Prints the card, then one line per comparison, build and timing.
+Prints the card and its power limit, then one line per comparison,
+build and timing. ``versus(dirs)`` does the same from another script
+(``chip_smoke.py``) and returns what it measured.
 """
 
 from __future__ import annotations
@@ -40,17 +43,33 @@ REGS_PER_SM, MAX_WARPS, MAX_BLOCKS = 65536, 64, 32
 
 def flagship_cases(device="cuda"):
     """{name: float64 (X, U, t, par)}: the 64 scenarios' step-0
-    trajectories, and the same perturbed by 1%."""
+    trajectories; the same perturbed by 1%; and the perturbed ones turned
+    and spun (quaternions moved by ~0.1 and renormalized, angular rates
+    and lateral thrust and roll torque made nonzero), since the step-0
+    trajectories neither turn nor spin, and the rows that read the
+    rotation show only there. Seeded numpy draws."""
     from scpp_tpu_torch.diag.scvx_steps import K, dispersed_params
     from scpp_tpu_torch.models import RocketQuat
     p = RocketQuat.nondimensionalize(dispersed_params(torch.float64))
     par = RocketQuat.param_vector(p)
     td = RocketQuat.init_trajectory(p, K, True)
     rng = np.random.default_rng(0)
-    X1 = td.X * (1 + 1e-2 * torch.tensor(rng.standard_normal(td.X.shape)))
-    U1 = td.U * (1 + 1e-2 * torch.tensor(rng.standard_normal(td.U.shape)))
-    cases = {"step 0": (td.X, td.U, td.t, par), "perturbed": (X1, U1, td.t,
-                                                               par)}
+
+    def noise(shape, scale):
+        return scale * torch.tensor(rng.standard_normal(shape))
+
+    X1 = td.X * (1 + noise(td.X.shape, 1e-2))
+    U1 = td.U * (1 + noise(td.U.shape, 1e-2))
+    X2, U2 = X1.clone(), U1.clone()
+    q = X2[..., 7:11] + noise(X2[..., 7:11].shape, 0.1)
+    X2[..., 7:11] = q / q.norm(dim=-1, keepdim=True)
+    X2[..., 11:14] = noise(X2[..., 11:14].shape, 1e-3)
+    t_ax = U2[..., 2:3].abs()
+    U2[..., 0:2] = t_ax * noise(U2[..., 0:2].shape, 0.1)
+    U2[..., 3:4] = t_ax * noise(U2[..., 3:4].shape, 1e-3)
+    cases = {"step 0": (td.X, td.U, td.t, par),
+             "perturbed": (X1, U1, td.t, par),
+             "turned": (X2, U2, td.t, par)}
     return {k: [a.contiguous().to(device) for a in v]
             for k, v in cases.items()}
 
@@ -97,11 +116,11 @@ def code_bytes(lib):
     return sizes
 
 
-def usage(log, threads):
+def usage(log, threads, resim_threads):
     """{kernel: (registers, spill stores + loads in bytes, blocks an SM by
-    the register file, mangled name)} from ``-Xptxas -v`` output, for the
-    discretize kernel of `threads` threads a block and the resim kernel
-    (256)."""
+    the register file, mangled name, threads a block)} from ``-Xptxas -v``
+    output, for the FOH dopri5 kernels: discretize at `threads` threads a
+    block, resim at `resim_threads`."""
     filt = shutil.which("cu++filt") or shutil.which("c++filt")
     out, name, mangled, spill = {}, None, None, 0
     for line in log:
@@ -121,14 +140,14 @@ def usage(log, threads):
         if m:
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
+        if m and name and "Dopri5, (bool)1" in name:
             regs = int(m.group(1))
-            nt = threads if "disc_mono_kernel" in name else 256
-            warps = nt // 32
+            nt = threads if "disc_mono_kernel" in name else resim_threads
+            warps = -(-nt // 32)
             per_warp = -(-regs * 32 // 256) * 256
             blocks = min(MAX_BLOCKS, MAX_WARPS // warps,
                          REGS_PER_SM // (per_warp * warps))
-            out[name] = (regs, spill, blocks, mangled)
+            out[name] = (regs, spill, blocks, mangled, nt)
     return out
 
 
@@ -192,25 +211,44 @@ def profile(lib, ins, steps):
     return phase_split(prof)
 
 
-def main(argv):
-    if not argv:
-        print(__doc__, file=sys.stderr)
-        return 2
-    print(f"device: {calib.card()}", flush=True)
+def card_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def versus(argv):
+    """Build this checkout's kernels and each of ``argv``'s, compare and
+    time them (see the module's doc), printing a line each. Returns
+    {"outputs": {(fn, dtype, case, other): (bit for bit, largest absolute
+    difference, relative to 1 + max |other|)}, "graph_ms" / "host_ms":
+    {(fn, label): [ms, ...]}, "ptxas": {label: {kernel: usage}},
+    "code_kb": {label: {kernel: KB}}}."""
+    calib.card()
+    print(f"device: {card_line()}", flush=True)
+    res = {"outputs": {}, "graph_ms": {}, "host_ms": {}, "ptxas": {},
+           "code_kb": {}}
     builds = {}
-    labels = ["this"] + argv
+    labels = ["this"] + list(argv)
     for label, (lib, log, sizes) in zip(labels,
-                                        build([kernels._CSRC] + argv)):
+                                        build([kernels._CSRC] + list(argv))):
         threads = lib.disc_mono_threads() if hasattr(
             lib, "disc_mono_threads") else 32
+        # the one-thread-an-interval launcher rounded K - 1 = 29 up to a warp
+        resim_nt = lib.resim_mono_threads() if hasattr(
+            lib, "resim_mono_threads") else 32
         builds[label] = lib
-        for name, (regs, spill, blocks, mangled) in usage(
-                log, threads).items():
+        res["ptxas"][label], res["code_kb"][label] = {}, {}
+        for name, (regs, spill, blocks, mangled, nt) in usage(
+                log, threads, resim_nt).items():
+            kb = sizes.get(mangled, 0) / 1024
+            res["ptxas"][label][name] = (regs, spill, blocks, nt)
+            res["code_kb"][label][name] = kb
             print(f"ptxas {label}: {name}: {regs} registers, {spill} bytes "
-                  f"spilled, {blocks} blocks an SM by registers "
-                  f"({threads if 'disc_mono' in name else 256} threads a "
-                  f"block); {sizes.get(mangled, 0) / 1024:.1f} KB of code",
-                  flush=True)
+                  f"spilled, {blocks} blocks an SM by registers ({nt} "
+                  f"threads a block); {kb:.1f} KB of code", flush=True)
     here = builds["this"]
     cases = flagship_cases()
     for dtype in (torch.float32, torch.float64):
@@ -224,20 +262,29 @@ def main(argv):
                     same = all(torch.equal(a, b) for a, b in zip(mine, other))
                     diff = max(float((a - b).abs().max())
                                for a, b in zip(mine, other))
+                    rel = max(float((a - b).abs().max()
+                                    / (1 + b.abs().max()))
+                              for a, b in zip(mine, other))
+                    res["outputs"][(fn, str(dtype), case, d)] = (same, diff,
+                                                                 rel)
                     print(f"outputs {fn} {dtype} {case}: this vs {d}: "
                           + ("bit for bit" if same else
-                             f"largest difference {diff:.3e}"), flush=True)
+                             f"largest difference {diff:.3e}, {rel:.3e} "
+                             f"relative to 1 + max |{d}|"), flush=True)
     ins = [a.float() for a in cases["step 0"]]
-    for d in argv:
-        for label in (d, "this", "this", d):
-            lib = builds[label]
-            host = calib.best_ms(lambda: launch(lib, "disc", ins, SUBSTEPS),
-                                 20)
-            graph = calib.graph_ms(
-                lambda: launch(lib, "disc", ins, SUBSTEPS), 20)
-            print(f"time disc_mono float32 B=64 K=30 {label}: {host:.4f} ms "
-                  f"from the host (best of 20), {graph:.4f} ms in a CUDA "
-                  f"graph", flush=True)
+    for fn, steps in (("disc", SUBSTEPS), ("resim", SIM_SUBSTEPS)):
+        name = "disc_mono" if fn == "disc" else "resim_mono"
+        for d in argv:
+            for label in (d, "this", "this", d):
+                lib = builds[label]
+                host = calib.best_ms(lambda: launch(lib, fn, ins, steps), 20)
+                graph = calib.graph_ms(lambda: launch(lib, fn, ins, steps),
+                                       20)
+                res["host_ms"].setdefault((fn, label), []).append(host)
+                res["graph_ms"].setdefault((fn, label), []).append(graph)
+                print(f"time {name} float32 B=64 K=30 {label}: {host:.4f} ms "
+                      f"from the host (best of 20), {graph:.4f} ms in a CUDA "
+                      f"graph", flush=True)
     for label, lib in builds.items():
         if not hasattr(lib, "disc_mono_prof_slots"):
             continue
@@ -249,6 +296,14 @@ def main(argv):
                 + f" us a block (mean); block run mean "
                 f"{split['block'][0]:.2f}, max {split['block'][1]:.2f} us; "
                 f"clock64 {split['ghz']:.3f} GHz", flush=True)
+    return res
+
+
+def main(argv):
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    versus(argv)
     return 0
 
 

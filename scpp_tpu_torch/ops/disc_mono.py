@@ -122,6 +122,10 @@ def _load_lib():
         lib.disc_mono_prof_slots.restype = c_int
         lib.disc_mono_threads.argtypes = []
         lib.disc_mono_threads.restype = c_int
+        lib.resim_mono_threads.argtypes = []
+        lib.resim_mono_threads.restype = c_int
+        lib.resim_mono_smem_bytes.argtypes = [c_int] * 3
+        lib.resim_mono_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -134,6 +138,18 @@ def smem_bytes(dtype, method, foh) -> int:
     """Shared memory of one ``disc_mono`` block, bytes, read from the
     built kernel."""
     return int(_load_lib().disc_mono_smem_bytes(
+        dtype.itemsize, _METHODS.index(method), int(foh)))
+
+
+def resim_threads() -> int:
+    """Threads of one ``resim_mono`` block, read from the built kernel."""
+    return int(_load_lib().resim_mono_threads())
+
+
+def resim_smem_bytes(dtype, method, foh) -> int:
+    """Shared memory of one ``resim_mono`` block, bytes, read from the
+    built kernel."""
+    return int(_load_lib().resim_mono_smem_bytes(
         dtype.itemsize, _METHODS.index(method), int(foh)))
 
 

@@ -103,24 +103,57 @@ int disc_run(int method, int foh, int nthreads, int B, int K, int KU,
 }
 
 template <typename T>
-int resim_run(int method, int foh, int nthreads, int B, int K, int KU,
-              int substeps, const T* X, const T* U, const T* t,
-              const T* par, T* J) {
+int resim_run(int method, int foh, int B, int K, int KU, int substeps,
+              const T* X, const T* U, const T* t, const T* par, T* J) {
   return disc::dispatch(sizeof(T), 0, method, foh, -1,
       [&](auto mdl, auto tab, auto fh, auto) {
         using Model = decltype(mdl);
         using Tab = decltype(tab);
         constexpr bool FOH = decltype(fh)::value;
-        std::vector<T> red(K - 1);
-        run_blocks(nthreads, B,
+        std::vector<T> smem(disc::resim_smem_bytes<Model, T>() / sizeof(T));
+        run_blocks(32 * disc::ResimWarps<Model>::warps, B,
             [&](long long b, int tid) {
-              disc::resim_block<Model, Tab, FOH, T>(b, tid, nthreads, K, KU,
-                                                    substeps, X, U, t, par,
-                                                    J, red.data());
+              disc::resim_block<Model, Tab, FOH, T>(b, tid, K, KU, substeps,
+                                                    X, U, t, par, J,
+                                                    smem.data());
             },
-            [] {});
+            [&]() {
+              std::fill(smem.begin(), smem.end(),
+                        std::numeric_limits<T>::quiet_NaN());
+            });
         return 0;
       });
+}
+
+// the model's flow map on N points three ways: flow; each row alone by
+// row_u or row_x, as a resim thread that owns it evaluates it, x read
+// through a strided column as there; and the value of flow on dual
+// numbers
+template <typename T>
+int flow_parts(int N, const T* x, const T* u, const T* par, T* f_flow,
+               T* f_parts, T* f_dual) {
+  using M = disc::RocketQuat;
+  constexpr int n = M::n, m = M::m;
+  using D = disc::Dual<T, disc::kDiscDirs>;
+  for (int i = 0; i < N; ++i) {
+    const T* xi = x + i * n;
+    const T* ui = u + i * m;
+    const T* pi = par + i * M::p;
+    M::flow(xi, ui, pi, f_flow + i * n);
+    T col[n * 32], ul[m];
+    for (int r = 0; r < n; ++r) col[r * 32] = xi[r];
+    std::copy(ui, ui + m, ul);
+    const disc::LaneCol<T> xc{col};
+    for (int r = 0; r < n; ++r)
+      f_parts[i * n + r] = M::reads_x(r) ? M::row_x<T>(r, xc, ul, pi)
+                                         : M::row_u(r, ul, pi);
+    D xd[n], ud[m], fd[n];
+    for (int r = 0; r < n; ++r) xd[r] = D{xi[r], {}};
+    for (int r = 0; r < m; ++r) ud[r] = D{ui[r], {}};
+    M::flow(xd, ud, pi, fd);
+    for (int r = 0; r < n; ++r) f_dual[i * n + r] = fd[r].v;
+  }
+  return 0;
 }
 
 #define HOST_RUN(sfx, T)                                                  \
@@ -132,12 +165,17 @@ int resim_run(int method, int foh, int nthreads, int B, int K, int KU,
     return disc_run<T>(method, foh, nthreads, B, K, KU, substeps, X, U,   \
                        t, par, A, Bm, C, z, prof);                        \
   }                                                                       \
-  extern "C" int host_resim##sfx(int method, int foh, int nthreads, int B, \
-                                 int K, int KU, int substeps, const T* X, \
+  extern "C" int host_resim##sfx(int method, int foh, int B, int K,      \
+                                 int KU, int substeps, const T* X,        \
                                  const T* U, const T* t, const T* par,    \
                                  T* J) {                                  \
-    return resim_run<T>(method, foh, nthreads, B, K, KU, substeps, X, U,  \
-                        t, par, J);                                       \
+    return resim_run<T>(method, foh, B, K, KU, substeps, X, U, t, par,    \
+                        J);                                               \
+  }                                                                       \
+  extern "C" int host_flow_parts##sfx(int N, const T* x, const T* u,      \
+                                      const T* par, T* f_flow,            \
+                                      T* f_parts, T* f_dual) {            \
+    return flow_parts<T>(N, x, u, par, f_flow, f_parts, f_dual);          \
   }
 #ifdef HOST_F32
 HOST_RUN(_f32, float)
@@ -150,6 +188,11 @@ unsigned long long (*g_warp_xch)[2][32];
 HOST_RUN(, double)
 
 extern "C" int host_disc_threads() { return disc::kDiscThreads; }
+extern "C" long long host_resim_smem_bytes(int elem_bytes) {
+  return elem_bytes == 4
+             ? disc::resim_smem_bytes<disc::RocketQuat, float>()
+             : disc::resim_smem_bytes<disc::RocketQuat, double>();
+}
 extern "C" int host_disc_prof_slots() { return disc::kDiscProfSlots; }
 extern "C" long long host_disc_smem_bytes(int elem_bytes, int method,
                                           int foh) {
@@ -220,24 +263,28 @@ def host_lib(tmp_path_factory):
         getattr(so, "host_disc" + sfx).argtypes = \
             [ctypes.c_int] * 7 + [P] * 8 + [ctypes.c_void_p]
         getattr(so, "host_resim" + sfx).argtypes = \
-            [ctypes.c_int] * 7 + [P] * 5
+            [ctypes.c_int] * 6 + [P] * 5
+        getattr(so, "host_flow_parts" + sfx).argtypes = \
+            [ctypes.c_int] + [P] * 6
     P = ctypes.POINTER(ctypes.c_double)
     so.host_flow_jac.argtypes = [ctypes.c_int] + [P] * 5
     so.host_disc_smem_bytes.argtypes = [ctypes.c_int] * 3
     so.host_disc_smem_bytes.restype = ctypes.c_longlong
+    so.host_resim_smem_bytes.argtypes = [ctypes.c_int]
+    so.host_resim_smem_bytes.restype = ctypes.c_longlong
     return so
 
 
 @functools.lru_cache(maxsize=None)
-def inputs(foh, seed=0):
+def inputs(foh, seed=0, k=K):
     """Two RocketQuat scenarios (the second with a 2% heavier start),
-    nondimensional, their initial guesses perturbed by a seeded numpy RNG:
-    X, U, t, par in float64."""
+    nondimensional, at ``k`` nodes, their initial guesses perturbed by a
+    seeded numpy RNG: X, U, t, par in float64."""
     rng = np.random.default_rng(seed)
     p = batch_params(RocketQuat.default_params(F64), 2)
     p = p.replace(x_init=p.x_init * torch.tensor([[1.0], [1.02]], dtype=F64))
     p = RocketQuat.nondimensionalize(p)
-    td = RocketQuat.init_trajectory(p, K, foh)
+    td = RocketQuat.init_trajectory(p, k, foh)
     X = td.X * (1 + 1e-2 * torch.tensor(rng.standard_normal(td.X.shape)))
     U = td.U * (1 + 1e-2 * torch.tensor(rng.standard_normal(td.U.shape)))
     return X, U.contiguous(), td.t, RocketQuat.param_vector(p)
@@ -251,12 +298,10 @@ def plain(foh, method):
     return disc_mono._disc_plain(*args), disc_mono._resim_plain(*args)
 
 
-def host_run(lib, ins, foh, method, nthreads=32, disc_threads=None,
-             prof=None):
-    """The host build of both bodies on these inputs: resim at
-    ``nthreads`` threads, discretize at ``disc_threads`` (default: the
-    kernel's own block); ``prof``, an int64 array of (B (K-1), slots),
-    takes the phase counters."""
+def host_run(lib, ins, foh, method, disc_threads=None, prof=None):
+    """The host build of both bodies on these inputs: discretize at
+    ``disc_threads`` (default: the kernel's own block); ``prof``, an int64
+    array of (B (K-1), slots), takes the phase counters."""
     disc_threads = disc_threads or lib.host_disc_threads()
     X, U, t, par = [np.ascontiguousarray(a.numpy()) for a in ins]
     B, K_, n = X.shape
@@ -274,11 +319,23 @@ def host_run(lib, ins, foh, method, nthreads=32, disc_threads=None,
         mid, int(foh), disc_threads, *dims, *ptr,
         *[a.ctypes.data_as(P) for a in outs[:4]],
         None if prof is None else prof.ctypes.data) == 0
-    assert getattr(lib, "host_resim" + sfx)(
-        mid, int(foh), nthreads, *dims, *ptr,
-        outs[4].ctypes.data_as(P)) == 0
-    outs = [torch.from_numpy(a) for a in outs]
-    return (outs[0], outs[1], outs[2] if foh else None, outs[3]), outs[4]
+    outs = [torch.from_numpy(a) for a in outs[:4]]
+    J = host_resim(lib, ins, foh, method)
+    return (outs[0], outs[1], outs[2] if foh else None, outs[3]), J
+
+
+def host_resim(lib, ins, foh, method, substeps=SUBSTEPS):
+    """J of the host build of the resim body, (B,)."""
+    X, U, t, par = [np.ascontiguousarray(a.numpy()) for a in ins]
+    f32 = X.dtype == np.float32
+    P = ctypes.POINTER(ctypes.c_float if f32 else ctypes.c_double)
+    J = np.full(X.shape[0], np.nan, X.dtype)
+    assert getattr(lib, "host_resim" + ("_f32" if f32 else ""))(
+        disc_mono._METHODS.index(method), int(foh), X.shape[0],
+        X.shape[1], U.shape[1], substeps,
+        *[a.ctypes.data_as(P) for a in (X, U, t, par)],
+        J.ctypes.data_as(P)) == 0
+    return torch.from_numpy(J)
 
 
 def rel(a, b):
@@ -318,7 +375,7 @@ F32_CEILING = 1.6e-6
 @pytest.mark.parametrize("foh,method", VARIANTS, ids=VARIANT_IDS)
 def test_kernel_body_float32_near_float64(host_lib, foh, method):
     ins32 = [a.float() for a in inputs(foh)]
-    got = host_run(host_lib, ins32, foh, method, nthreads=8)
+    got = host_run(host_lib, ins32, foh, method)
     d = distances(got, plain(foh, method))
     args = (RocketQuat, *ins32, SUBSTEPS, method, foh)
     d_plain = distances((disc_mono._disc_plain(*args),
@@ -326,6 +383,25 @@ def test_kernel_body_float32_near_float64(host_lib, foh, method):
     print(f"float32 distance from float64 plain, kernel body / plain: "
           + ", ".join(f"{k} {d[k]:.2e} / {d_plain[k]:.2e}" for k in d))
     assert max(d.values()) <= F32_CEILING, d
+
+
+def turned(X, U, rng):
+    """X, U (float64) turned and spun: quaternions moved by ~0.1 and
+    renormalized, angular rates, lateral thrust and roll torque made
+    nonzero (the initial guesses hold them at zero, so the rows that read
+    the rotation are trivial there)."""
+    X, U = X.clone(), U.clone()
+    q = X[..., 7:11] + 0.1 * torch.tensor(rng.standard_normal(
+        X[..., 7:11].shape))
+    X[..., 7:11] = q / q.norm(dim=-1, keepdim=True)
+    X[..., 11:14] = 1e-3 * torch.tensor(rng.standard_normal(
+        X[..., 11:14].shape))
+    t_ax = U[..., 2:3].abs()
+    U[..., 0:2] = t_ax * 0.1 * torch.tensor(rng.standard_normal(
+        U[..., 0:2].shape))
+    U[..., 3:4] = t_ax * 1e-3 * torch.tensor(rng.standard_normal(
+        U[..., 3:4].shape))
+    return X, U
 
 
 def first_scenario(foh):
@@ -352,6 +428,94 @@ def test_kernel_body_independent_of_thread_count(host_lib, foh, method):
                     assert torch.equal(g, r), (dtype, nt)
 
 
+def resim_by_interval(lib, ins, foh, method, substeps=SUBSTEPS):
+    """J (B,) of the host build of the resim body with every interval
+    launched alone, as a scenario of two nodes (so at lane 0 of the first
+    round, with t / (K - 1) as its time), the intervals' J added in
+    interval order in the inputs' type."""
+    X, U, t, par = ins
+    B, K, n = X.shape
+    KU = U.shape[1] - K + 2
+    dt = t / (K - 1)
+    Xs = torch.stack([X[:, k:k + 2] for k in range(K - 1)], 1)
+    Us = torch.stack([U[:, k:k + KU] for k in range(K - 1)], 1)
+    d = host_resim(lib, [Xs.reshape(-1, 2, n).contiguous(),
+                         Us.reshape(-1, KU, U.shape[-1]).contiguous(),
+                         dt.repeat_interleave(K - 1).contiguous(),
+                         par.repeat_interleave(K - 1, 0).contiguous()],
+                   foh, method, substeps).reshape(B, K - 1)
+    J = torch.zeros(B, dtype=X.dtype)
+    for k in range(K - 1):
+        J = J + d[:, k]
+    return J
+
+
+@pytest.mark.parametrize("foh,method", VARIANTS, ids=VARIANT_IDS)
+def test_resim_body_independent_of_layout(host_lib, foh, method):
+    """The resim body's J against the same body run an interval at a time
+    (each interval alone at lane 0 of a block, its J added in interval
+    order): each row keeps its expression and every sum its order
+    whatever lane an interval lands in, so the two agree bit for bit, in
+    float64 and float32, on the initial guesses and on turned and
+    spinning ones."""
+    X, U, t, par = inputs(foh)
+    Xt, Ut = turned(X, U, np.random.default_rng(7))
+    for dtype in (F64, torch.float32):
+        for case in ((X, U, t, par), (Xt, Ut.contiguous(), t, par)):
+            ins = [a.to(dtype) for a in case]
+            ref = host_resim(host_lib, ins, foh, method)
+            assert bool(torch.isfinite(ref).all())
+            got = resim_by_interval(host_lib, ins, foh, method)
+            assert torch.equal(got, ref), dtype
+
+
+@pytest.mark.parametrize("foh,method", VARIANTS, ids=VARIANT_IDS)
+def test_resim_body_loops_over_intervals(host_lib, foh, method):
+    """K - 1 = 40 intervals, more than a round's 32, and 10 substeps: J
+    against the plain version in float64 to 1e-10, and bit for bit the
+    same body run an interval at a time (intervals 32-39 at lanes 0-7 of
+    a second round in the whole run)."""
+    ins = inputs(foh, k=41)
+    ref = disc_mono._resim_plain(RocketQuat, *ins, 10, method, foh)
+    got = host_resim(host_lib, ins, foh, method, substeps=10)
+    assert rel(got, ref) <= 1e-10, rel(got, ref)
+    alone = resim_by_interval(host_lib, ins, foh, method, substeps=10)
+    assert torch.equal(alone, got)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32],
+                         ids=["float64", "float32"])
+def test_flow_parts_match_flow(host_lib, dtype):
+    """Each row alone (row_u, row_x, as a resim thread evaluates it)
+    against flow and against the value of flow on dual numbers, bit for
+    bit on the host (which fuses no multiply-add), at random turned and
+    spinning points (a quarter with a zero roll torque u3, whose
+    angular-acceleration row 13 has a zero numerator); and flow against
+    the model's flow_map in float64."""
+    rng = np.random.default_rng(5)
+    X, U, _, par = inputs(True)
+    N = 64
+    x, u = turned(X.reshape(-1, 14)[rng.integers(0, X.shape[0] * K, N)],
+                  U.reshape(-1, 4)[rng.integers(0, U.shape[0] * K, N)], rng)
+    u[::4, 3] = 0.0
+    parN = par[rng.integers(0, 2, N)]
+    ins = [np.ascontiguousarray(a.to(dtype).numpy()) for a in (x, u, parN)]
+    outs = [np.full((N, 14), np.nan, ins[0].dtype) for _ in range(3)]
+    P = ctypes.POINTER(ctypes.c_float if dtype == torch.float32
+                       else ctypes.c_double)
+    sfx = "_f32" if dtype == torch.float32 else ""
+    assert getattr(host_lib, "host_flow_parts" + sfx)(
+        N, *[a.ctypes.data_as(P) for a in ins + outs]) == 0
+    f_flow, f_parts, f_dual = outs
+    assert np.isfinite(f_flow).all()
+    for other in (f_parts, f_dual):
+        np.testing.assert_array_equal(other, f_flow)
+    if dtype == F64:
+        np.testing.assert_allclose(
+            f_flow, RocketQuat.flow_map(x, u, parN).numpy(), rtol=1e-13,
+            atol=1e-15)
+
+
 def test_kernel_body_phase_counters(host_lib):
     """With a counter buffer each block records its three parts (x chain,
     Jacobians with r, Y recursion), its whole run in clock cycles and in
@@ -372,12 +536,16 @@ def test_kernel_body_phase_counters(host_lib):
 def test_shared_memory_fits(host_lib):
     """The discretize block's shared memory (``disc_smem_bytes``, what the
     launcher gives it) fits an H100 block's 227 KB in every variant and
-    type, and a double block takes more than a float one."""
+    type, and a double block takes more than a float one; the resim
+    block's (``resim_smem_bytes``) fits the 48 KB a launch takes without
+    opting in."""
     for foh, method in VARIANTS:
         mid = disc_mono._METHODS.index(method)
         f32, f64 = (host_lib.host_disc_smem_bytes(eb, mid, int(foh))
                     for eb in (4, 8))
         assert 0 < f32 < f64 <= 232448, (foh, method, f32, f64)
+    r32, r64 = (host_lib.host_resim_smem_bytes(eb) for eb in (4, 8))
+    assert 0 < r32 < r64 <= 48 * 1024, (r32, r64)
 
 
 def test_dual_jacobian_matches_torch_func(host_lib):
